@@ -14,20 +14,26 @@ Phases (any failure exits non-zero):
 2. kernels — each kernel against its plain PyTorch version on the card,
    bit for bit, at the main path's shapes (a bf16 tinyllama-1.1b leaf, an
    f32 leaf of the embedding's shape, 4 KiB blocks, 128 KiB restore
-   pages), with ragged-tail, all-clean, all-dirty and corrupted-page cases;
-   each line gives the kernel's and the plain version's times beside the
-   least time the card could take (bytes over 3.35 TB/s).
+   pages), with ragged-tail, all-clean, all-dirty and corrupted-page cases,
+   then on random bytes at further block sizes (16 KiB blocks, a page plus
+   a 4 KiB tail); each line gives the kernel's and the plain version's
+   times beside the least time the card could take (bytes over 3.35 TB/s).
 3. main path — tinyllama-1.1b's 12 parameter leaves at full width on the
    card, from ``--seed``: WAL commit + full save, two seeded partial
    updates each with a WAL commit and a delta save, the pages of a 4th
    save flushed without its manifest, a crash, a fresh manager's restore
    (which must return step 3, tensor for tensor, and the WAL step 3), and
-   one more delta save; then a smaller ``kernel_impl="staged"`` run whose
-   page routing must equal the fused run's. Every kernel's launch count,
-   set to 0 just before this phase, must be positive after it.
+   one more delta save. Launch counts are set to 0 just before it and read
+   just after: flush_pack, popcnt_checksum and apply_unpack must be
+   positive, dirty_diff 0.
+4. staged run — a smaller ``kernel_impl="staged"`` run whose page routing
+   must equal the fused arm's on the same saves. Its own counts, set to 0
+   just before it: dirty_diff and popcnt_checksum positive, flush_pack 0.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
-card's name and power limit and one ``{"kernels": [...]}`` line.
+card's name and power limit and one ``{"kernels": [...]}`` line, whose
+``launches`` are each kernel's CUDA launches on the path it serves
+(``path``: the main path, or the staged run for dirty_diff).
 """
 
 from __future__ import annotations
@@ -228,6 +234,7 @@ def kernel_phase(state, seed: int) -> dict:
                                               exp, block_bytes=PAGE,
                                               impl="ref"), 2),
         bytes=2 * pages * PAGE + 20 * pages, ops=pages * PAGE // 2)
+    checked += geometry_cases(gen)
     for name, row in rows.items():
         row["max_abs_err"] = 0   # every comparison above is bit for bit
         row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["ops"])
@@ -238,6 +245,73 @@ def kernel_phase(state, seed: int) -> dict:
     print(f"kernels checked bit for bit against their plain versions in "
           f"{checked} cases: {json.dumps(list(rows))}", flush=True)
     return rows
+
+
+#: (block_bytes, bytes) beyond the main path's: whole blocks, a ragged
+#: 4 KiB tail, 16 KiB blocks with an odd length, a page plus a 4 KiB tail
+GEOMETRIES = ((BLOCK, BLOCK * 33), (BLOCK, BLOCK * 7 + 6),
+              (16384, 100_002), (PAGE, PAGE * 5 + BLOCK))
+
+
+def geometry_cases(gen) -> int:
+    """All four kernels against their plain versions on random bytes in
+    each of ``GEOMETRIES`` (flush_pack with a sparse, a clean and an
+    all-dirty snapshot; apply_unpack shuffled with one corrupted block),
+    and the wrappers' refusal of a misaligned buffer. Returns the number
+    of cases checked."""
+    import torch
+    from repro_torch.kernels import (apply_unpack, dirty_blocks, flush_pack,
+                                     popcount_blocks)
+    checked = 0
+    for bb, n in GEOMETRIES:
+        where = f"{n} B in {bb} B blocks"
+        snap = torch.randint(0, 256, (n,), dtype=torch.uint8, device=DEV,
+                             generator=gen)
+        cur = snap.clone()
+        cur[0] ^= 0x5A
+        cur[n - 1] ^= 0x5A
+        if not torch.equal(popcount_blocks(cur, block_bytes=bb),
+                           popcount_blocks(cur, block_bytes=bb, impl="ref")):
+            fail(f"popcnt_checksum disagrees with its plain version ({where})")
+        if not torch.equal(dirty_blocks(cur, snap, block_bytes=bb),
+                           dirty_blocks(cur, snap, block_bytes=bb,
+                                        impl="ref")):
+            fail(f"dirty_diff disagrees with its plain version ({where})")
+        for a, b in ((cur, snap), (snap, snap.clone()), (cur, snap ^ 1)):
+            got = flush_pack(a, b, block_bytes=bb)
+            want = flush_pack(a, b, block_bytes=bb, impl="ref")
+            if got.total != want.total or not all(
+                    torch.equal(getattr(got, f), getattr(want, f))
+                    for f in ("flags", "counts", "offsets", "packed",
+                              "index")):
+                fail(f"flush_pack disagrees with its plain version ({where})")
+        nb = -(-n // bb)
+        packed = torch.zeros(nb * bb, dtype=torch.uint8, device=DEV)
+        packed[:n] = cur
+        idx = torch.randperm(nb, generator=gen, device=DEV).to(torch.int32)
+        exp = popcount_blocks(packed, block_bytes=bb, impl="ref")
+        exp = exp.to(torch.int64)
+        exp[0] += 1                                   # one corrupted block
+        got = apply_unpack(torch.zeros(n, dtype=torch.uint8, device=DEV),
+                           packed, idx, exp, block_bytes=bb)
+        want = apply_unpack(torch.zeros(n, dtype=torch.uint8, device=DEV),
+                            packed, idx, exp, block_bytes=bb, impl="ref")
+        if not (got.nbad == want.nbad == 1 and torch.equal(got.out, want.out)
+                and torch.equal(got.ok, want.ok)
+                and torch.equal(got.counts, want.counts)):
+            fail(f"apply_unpack disagrees with its plain version ({where})")
+        checked += 4
+    if DEV != "cuda":      # a CPU rehearsal: the plain version takes any buffer
+        return checked
+    x = torch.zeros(BLOCK + 1, dtype=torch.uint8, device=DEV)
+    try:
+        popcount_blocks(x[1:])
+    except ValueError as e:
+        if "aligned" not in str(e):
+            raise
+    else:
+        fail("popcnt_checksum took a buffer that is not 16-byte aligned")
+    return checked + 1
 
 
 # ---------------------------------------------------------------- main path
@@ -375,9 +449,12 @@ def main_path(state, seed: int, layers: int, rate_gbps: float,
     del m2, got
 
 
-def staged_path(seed: int, layers: int, rate_gbps: float, tmp: str) -> None:
+def staged_path(seed: int, layers: int, rate_gbps: float, tmp: str,
+                counted) -> dict:
     """The ``kernel_impl="staged"`` arm (dirty_diff) on a few full-width
-    leaves, against the fused arm on the same saves."""
+    leaves, against the fused arm on the same saves. ``counted(fn)`` runs
+    ``fn`` between zeroed and read launch counts; the staged run goes
+    through it, and its counts are returned."""
     import torch
     from repro_torch.core.costmodel import PMemCostModel
     from repro_torch.persistence import CheckpointConfig
@@ -392,8 +469,12 @@ def staged_path(seed: int, layers: int, rate_gbps: float, tmp: str) -> None:
         state = init_state(table, seed=seed, device=DEV, layers=layers)
         cfg = CheckpointConfig(page_size=PAGE, manifest_capacity=MANIFEST,
                                kernel_impl=impl)
-        m, reports, _ = run_saves(os.path.join(tmp, f"{impl}.pmem"), cfg, cm,
+        saves = lambda: run_saves(os.path.join(tmp, f"{impl}.pmem"), cfg, cm,
                                   state, seed, layers)
+        if impl == "staged":
+            launches, (m, reports, _) = counted(saves)
+        else:
+            m, reports, _ = saves()
         routes[impl] = [(r.pages_cow, r.pages_mulog, r.pages_clean,
                          r.blocks_written) for r, _ in reports]
         print(f"{impl} run (4 leaves): (cow, mulog, clean, blocks_written) "
@@ -402,6 +483,7 @@ def staged_path(seed: int, layers: int, rate_gbps: float, tmp: str) -> None:
         del m, state
     if routes["fused"] != routes["staged"]:
         fail("staged and fused saves routed pages differently")
+    return launches
 
 
 # --------------------------------------------------------------------- main
@@ -459,20 +541,46 @@ def main() -> int:
     # 3. main path ------------------------------------------------------
     wrappers = {"flush_pack": flush_pack, "popcnt_checksum": popcount_blocks,
                 "apply_unpack": apply_unpack, "dirty_diff": dirty_blocks}
-    for w in wrappers.values():
-        w.launches = 0
-    t0 = time.perf_counter()
+
+    def counted(fn):
+        """``fn()``'s CUDA launches per kernel, counted from 0, and its
+        result."""
+        for w in wrappers.values():
+            w.launches = 0
+        out = fn()
+        return {name: w.launches for name, w in wrappers.items()}, out
+
+    def check_launches(path, launches, used, unused):
+        print(f"{path}: kernel launches {json.dumps(launches)}", flush=True)
+        idle = [k for k in used if launches[k] <= 0]
+        if idle:
+            fail(f"the {path} never launched {idle}")
+        stray = [k for k in unused if launches[k] != 0]
+        if stray:
+            fail(f"the {path} launched {stray}, which belong to the other arm")
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        main_path(state, args.seed, args.layers, rate, tmp)
+        t0 = time.perf_counter()
+        main_launches, _ = counted(
+            lambda: main_path(state, args.seed, args.layers, rate, tmp))
+        print(f"main path: {time.perf_counter() - t0:.1f} s", flush=True)
+        check_launches("main path", main_launches,
+                       ("flush_pack", "popcnt_checksum", "apply_unpack"),
+                       ("dirty_diff",))
         del state
         torch.cuda.empty_cache()
-        staged_path(args.seed, args.layers, rate, tmp)
-    launches = {name: w.launches for name, w in wrappers.items()}
-    print(f"main path: {time.perf_counter() - t0:.1f} s; kernel launches "
-          f"{json.dumps(launches)}", flush=True)
-    idle = [name for name, c in launches.items() if c <= 0]
-    if idle:
-        fail(f"the main path never launched {idle}")
+        t0 = time.perf_counter()
+        staged_launches = staged_path(args.seed, args.layers, rate, tmp,
+                                      counted)
+        print(f"staged pair: {time.perf_counter() - t0:.1f} s", flush=True)
+        check_launches("staged run", staged_launches,
+                       ("dirty_diff", "popcnt_checksum"), ("flush_pack",))
+    # each kernel's launches come from the path it serves: the fused main
+    # path, or for dirty_diff the staged arm of the same manager
+    paths = {name: "main" for name in wrappers}
+    paths["dirty_diff"] = "staged"
+    launches = {name: (main_launches if paths[name] == "main"
+                       else staged_launches)[name] for name in wrappers}
 
     # report ------------------------------------------------------------
     replaces = {
@@ -485,6 +593,7 @@ def main() -> int:
         "name": name, "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{name}.cu",
         "replaces": replaces[name], "launches": launches[name],
+        "path": paths[name],
         "max_abs_err": rows[name]["max_abs_err"], "ms": rows[name]["ms"],
         "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound_ms"],
         "bound_by": rows[name]["bound_by"], "library_ms": None,

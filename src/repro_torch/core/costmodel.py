@@ -410,6 +410,11 @@ class PMemCostModel:
         credits the fused kernel's win."""
         if not nbytes:
             return 0.0
+        if math.isnan(self.hbm_read_bw_gbps):
+            raise ValueError(
+                "this cost model has no device read rate; build one with "
+                "PMemCostModel(hbm_read_bw_gbps=<the card's rate>) and pass "
+                "it to whatever scans on the device")
         return nbytes / self.hbm_read_bw_gbps   # B / (GB/s) = ns
 
     # ------------------------------------------------- lane-partitioned time
@@ -527,8 +532,8 @@ class PMemCostModel:
 
 #: The paper's PMem constants with no device read rate (NaN): the PMem-only
 #: consumers (page-flush policy, lane placer, buffer manager) never price a
-#: device scan, and a scan priced through this model reads NaN instead of
-#: another card's figure. ``CheckpointManager`` takes the model it prices
-#: scans with from its caller.
+#: device scan, and a scan priced through this model raises instead of
+#: taking another card's figure. ``CheckpointManager`` takes the model it
+#: prices scans with from its caller.
 COST_MODEL = PMemCostModel(hbm_read_bw_gbps=math.nan)
 SSD_COST_MODEL = SSDCostModel()

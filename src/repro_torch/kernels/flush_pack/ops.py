@@ -90,12 +90,12 @@ def flush_pack(cur: torch.Tensor, snap: torch.Tensor, *,
                 flags.data_ptr(), counts.data_ptr(), offs.data_ptr(),
                 packed.data_ptr(), index.data_ptr(), stream_of(a)),
                 "flush_pack")
-        flush_pack.launches += 1
+        flush_pack.launches += 3          # scan, prefix sum, pack
         offsets = offs[:nb]
         total = int(offs[nb])
     packed = packed.view(cur.dtype) if cur.dtype != torch.uint8 else packed
     return FlushPack(flags, counts, offsets, packed, index, total)
 
 
-#: kernel passes (each three launches) since the count was last set to 0
+#: CUDA launches (three for each call) since the count was last set to 0
 flush_pack.launches = 0

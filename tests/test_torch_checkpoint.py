@@ -22,6 +22,7 @@ from repro.models import init_params
 from repro.persistence.checkpoint import CheckpointConfig as JaxConfig
 from repro.persistence.checkpoint import CheckpointManager as JaxManager
 from repro_torch.core.costmodel import COST_MODEL, PMemCostModel
+from repro_torch.core.pmem import PMemStats
 from repro_torch.core.ssd import SSD
 from repro_torch.persistence import (
     CheckpointConfig,
@@ -249,8 +250,11 @@ def test_manager_device_rules(tmp_path):
         CheckpointManager(None, cfg, device="cpu")
     with pytest.raises(TypeError):
         PMemCostModel()
-    assert math.isnan(COST_MODEL.scan_read_ns(1)) and \
-        COST_MODEL.scan_read_ns(0) == 0.0
+    assert COST_MODEL.scan_read_ns(0) == 0.0
+    with pytest.raises(ValueError, match="no device read rate"):
+        COST_MODEL.scan_read_ns(1)        # a forgotten rate fails loudly
+    with pytest.raises(ValueError, match="no device read rate"):
+        COST_MODEL.engine_time_ns(PMemStats(), scan_read_bytes=4096)
     m = port_manager(None, cfg)
     with pytest.raises(TypeError):
         m.save(0, make_state(0))          # numpy leaves are refused
