@@ -7,17 +7,22 @@ Run from the repository root:
 
 Phases (any failure exits non-zero):
 
-1. setup — build the four CUDA kernels from ``src/repro_torch/kernels/csrc``
-   (one ``nvcc`` per source, all at once), print the card's name and power
-   limit, measure the device-memory rate with a timed device copy (the
-   port's cost model prices scans with it), and print what was cut.
+1. setup — build the seven CUDA kernels from the six sources in
+   ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, all at
+   once), print the card's name and power limit, measure the
+   device-memory rate with a timed device copy (the port's cost model
+   prices scans with it), and print what was cut.
 2. kernels — each kernel against its plain PyTorch version on the card,
-   bit for bit, at the main path's shapes (a bf16 tinyllama-1.1b leaf, an
-   f32 leaf of the embedding's shape, 4 KiB blocks, 128 KiB restore
-   pages), with ragged-tail, all-clean, all-dirty and corrupted-page cases,
-   then on random bytes at further block sizes (16 KiB blocks, a page plus
-   a 4 KiB tail); each line gives the kernel's and the plain version's
-   times beside the least time the card could take (bytes over 3.35 TB/s).
+   bit for bit, at the main path's shapes (the bf16 tinyllama-1.1b leaf
+   ``ffn/up``, an f32 leaf of the embedding's shape, 4 KiB blocks, 128 KiB
+   restore pages), with ragged-tail, all-clean, all-dirty and
+   corrupted-page cases, the delta gather and scatter with a sparse dirty
+   set and with every block, float blocks holding ±0 and NaN for the
+   dirty flags, then on random bytes at further block sizes (16 KiB
+   blocks, a page plus a 4 KiB tail); each line gives the kernel's and the
+   plain version's times beside the least time the card could take (bytes
+   over 3.35 TB/s) and, for the gather and the scatter, the time of the
+   one PyTorch call that computes the same function.
 3. main path — tinyllama-1.1b's 12 parameter leaves at full width on the
    card, from ``--seed``: WAL commit + full save, two seeded partial
    updates each with a WAL commit and a delta save, the pages of a 4th
@@ -29,11 +34,19 @@ Phases (any failure exits non-zero):
 4. staged run — a smaller ``kernel_impl="staged"`` run whose page routing
    must equal the fused arm's on the same saves. Its own counts, set to 0
    just before it: dirty_diff and popcnt_checksum positive, flush_pack 0.
+5. delta round trip — the staged delta chain over the 12 leaves at full
+   width, after a seeded update: per leaf, flush_scan equals dirty_diff +
+   popcnt_checksum and flush_pack's flags and counts, pack_dirty equals
+   flush_pack's packed rows and ids, and apply_delta of that delta onto
+   the snapshot gives back the live leaf. Its own counts: flush_scan,
+   delta_pack and delta_apply positive (and 0 on the main path and the
+   staged run).
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
 card's name and power limit and one ``{"kernels": [...]}`` line, whose
 ``launches`` are each kernel's CUDA launches on the path it serves
-(``path``: the main path, or the staged run for dirty_diff).
+(``path``: the main path, the staged run for dirty_diff, or the delta
+round trip for flush_scan, delta_pack and delta_apply).
 """
 
 from __future__ import annotations
@@ -56,6 +69,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_INT_OPS_PER_S = 33.5e12
 PAGE = 128 * 1024
 BLOCK = 4096
+#: the kernel phase's leaf: tinyllama-1.1b's largest, (22, 2048, 5632) bf16
+BIG_LEAF = "p/decoder/seg0/b0/ffn/up"
 #: the manifest log's capacity: one manifest entry of the full 2.2 GB state
 #: (16,787 pages) is about 0.6 MB of JSON, so CheckpointConfig's default
 #: of 1 MiB holds a single save
@@ -116,13 +131,13 @@ def kernel_phase(state, seed: int) -> dict:
     """Each kernel against its plain version (``impl="ref"``) on the card,
     bit for bit. Returns the timing row of each kernel's main-path case."""
     import torch
-    from repro_torch.kernels import (apply_unpack, dirty_blocks, flush_pack,
+    from repro_torch.kernels import (apply_delta, apply_unpack, dirty_blocks,
+                                     flush_pack, flush_scan, pack_delta,
                                      popcount_blocks)
     from repro_torch.kernels.common import as_bytes, nblocks_for
 
     gen = torch.Generator(device=DEV).manual_seed(seed + 1)
-    big_name = max(state, key=lambda k: state[k].numel())
-    big = state[big_name]                                  # bf16 leaf
+    big = state[BIG_LEAF]                                  # bf16 leaf
     f32 = torch.randn(32000, 2048, generator=gen, device=DEV)  # f32 leaf
     ragged = torch.randn(3001, generator=gen, device=DEV)      # 12004 B
 
@@ -134,14 +149,11 @@ def kernel_phase(state, seed: int) -> dict:
         flat[pos] = flat[pos] + 1
         return cur
 
-    def equal(a, b):
-        return torch.equal(as_bytes(a.contiguous()), as_bytes(b.contiguous()))
-
     rows = {}
     checked = 0
 
     # popcnt_checksum ---------------------------------------------------
-    for label, x in (("bf16 " + big_name, big), ("f32 (32000, 2048)", f32),
+    for label, x in (("bf16 " + BIG_LEAF, big), ("f32 (32000, 2048)", f32),
                      ("ragged f32 (3001,)", ragged)):
         got = popcount_blocks(x)
         want = popcount_blocks(x, impl="ref")
@@ -234,17 +246,142 @@ def kernel_phase(state, seed: int) -> dict:
                                               exp, block_bytes=PAGE,
                                               impl="ref"), 2),
         bytes=2 * pages * PAGE + 20 * pages, ops=pages * PAGE // 2)
+    del restore_base, packed, rbase
+
+    # flush_scan --------------------------------------------------------
+    for label, a, b in cases:
+        flags, counts = flush_scan(a, b)
+        want_flags, want_counts = flush_scan(a, b, impl="ref")
+        if not (torch.equal(flags, want_flags)
+                and torch.equal(counts, want_counts)):
+            fail(f"flush_scan disagrees with its plain version ({label})")
+        checked += 1
+    rows["flush_scan"] = dict(
+        shape=f"{tuple(big.shape)} bf16 x2, {BLOCK} B blocks",
+        ms=cuda_ms(lambda: flush_scan(big_cur, big), 5),
+        plain_ms=cuda_ms(lambda: flush_scan(big_cur, big, impl="ref"), 2),
+        bytes=2 * n + 8 * nb, ops=n)
+
+    # delta_pack (gather) and delta_apply (scatter) ----------------------
+    sparse_idx = torch.nonzero(dirty_blocks(big_cur, big, impl="ref")
+                               ).reshape(-1).to(torch.int32)
+    every = torch.arange(nb, dtype=torch.int32, device=DEV)
+    shuffled = torch.randperm(nb, generator=gen, device=DEV).to(torch.int32)
+    r_idx = torch.tensor([2, 0, 1], dtype=torch.int32, device=DEV)
+    for label, src, base, idx in (
+            (f"{sparse_idx.numel()} dirty blocks", big_cur, big, sparse_idx),
+            ("every block", big_cur, big, every),
+            ("every block, shuffled", big_cur, big, shuffled),
+            ("ragged f32 (3001,)", sparse(ragged), ragged, r_idx)):
+        delta = pack_delta(src, idx)
+        if not equal(delta, pack_delta(src, idx, impl="ref")):
+            fail(f"delta_pack disagrees with its plain version ({label})")
+        got = apply_delta(base.clone(), delta, idx)
+        want = apply_delta(base.clone(), delta, idx, impl="ref")
+        if not equal(got, want):
+            fail(f"delta_apply disagrees with its plain version ({label})")
+        if label != "ragged f32 (3001,)" and not equal(got, src):
+            fail(f"the delta of {label} did not rebuild the live leaf")
+        checked += 2
+        del delta, got, want
+    delta = pack_delta(big_cur, every)
+    base = big.clone()
+    blocks = big_cur.view(nb, BLOCK // big.element_size())
+    base_blocks = base.view(nb, -1)
+    every_long = every.long()
+    rows["delta_pack"] = dict(
+        shape=f"{tuple(big.shape)} bf16, every one of {nb} {BLOCK} B blocks",
+        ms=cuda_ms(lambda: pack_delta(big_cur, every), 5),
+        plain_ms=cuda_ms(lambda: pack_delta(big_cur, every, impl="ref"), 2),
+        library_ms=cuda_ms(lambda: torch.index_select(blocks, 0, every_long),
+                           5),
+        library="torch.index_select(blocks, 0, idx)",
+        bytes=2 * nb * BLOCK + 4 * nb, ops=0)
+    rows["delta_apply"] = dict(
+        shape=f"{tuple(big.shape)} bf16, every one of {nb} {BLOCK} B blocks",
+        ms=cuda_ms(lambda: apply_delta(base, delta, every), 5),
+        plain_ms=cuda_ms(lambda: apply_delta(base, delta, every, impl="ref"),
+                         2),
+        library_ms=cuda_ms(lambda: base_blocks.index_copy_(0, every_long,
+                                                           delta), 5),
+        library="blocks.index_copy_(0, idx, upd)",
+        bytes=2 * nb * BLOCK + 4 * nb, ops=0)
+    del delta, base, base_blocks
+    checked += float_flag_cases()
     checked += geometry_cases(gen)
     for name, row in rows.items():
         row["max_abs_err"] = 0   # every comparison above is bit for bit
+        row.setdefault("library_ms", None)
         row["bound_ms"], row["bound_by"] = bound_ms(row["bytes"], row["ops"])
+        lib = ("" if row["library_ms"] is None else
+               f" library_ms={row['library_ms']:.4f} ({row['library']})")
         print(f"kernel {name}: {row['shape']}: kernel_ms={row['ms']:.4f} "
               f"plain_ms={row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
               f"({row['bound_by']}: {row['bytes']} B at 3.35 TB/s, the H100 "
-              f"SXM data sheet figure) max_abs_err=0", flush=True)
+              f"SXM data sheet figure){lib} max_abs_err=0", flush=True)
     print(f"kernels checked bit for bit against their plain versions in "
           f"{checked} cases: {json.dumps(list(rows))}", flush=True)
     return rows
+
+
+def equal(a, b) -> bool:
+    """Same shape, dtype and bytes (so -0.0 is not +0.0, and a NaN equals
+    itself)."""
+    import torch
+    from repro_torch.kernels.common import as_bytes
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        as_bytes(a.contiguous()), as_bytes(b.contiguous()))
+
+
+def float_flag_cases() -> int:
+    """dirty_diff, flush_pack and flush_scan on f32, bf16 and f16 blocks
+    that hold ±0 and NaN: against their plain versions and the flags
+    the reference's value compare gives (±0 equal, NaN != NaN), and on
+    the same tensors' uint8 views, where they compare bytes. Returns the
+    number of cases checked."""
+    import torch
+    from repro_torch.kernels import dirty_blocks, flush_pack, flush_scan
+    from repro_torch.kernels.common import as_bytes
+    checked = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        per = BLOCK // torch.empty((), dtype=dtype).element_size()
+        snap = torch.ones(5 * per + 7, dtype=dtype, device=DEV)
+        cur = snap.clone()
+        snap[[0, 5, per - 1]] = 0.0
+        cur[[0, 5, per - 1]] = -0.0            # block 0: ±0, clean
+        cur[per + 3] = snap[per + 3] = float("nan")  # 1: NaN both sides
+        snap[2 * per + 9] = float("nan")       # 2: NaN against 1.0
+        snap[3 * per] = -0.0                   # 3: ±0 and a change
+        cur[3 * per] = 0.0
+        cur[3 * per + 1] = 2.0
+        snap[5 * per + 6] = float("nan")       # 5 (ragged): NaN in snap
+        value = torch.tensor([0, 1, 1, 1, 0, 1], dtype=torch.int32,
+                             device=DEV)
+        byte = torch.tensor([1, 0, 1, 1, 0, 1], dtype=torch.int32,
+                            device=DEV)
+        for a, b, want in ((cur, snap, value),
+                           (as_bytes(cur), as_bytes(snap), byte)):
+            where = f"{dtype} {'values' if a.dtype == dtype else 'bytes'}"
+            flags = dirty_blocks(a, b)
+            fp = flush_pack(a, b)
+            ref = flush_pack(a, b, impl="ref")
+            scan = flush_scan(a, b)
+            if not (torch.equal(flags, want)
+                    and torch.equal(dirty_blocks(a, b, impl="ref"), want)):
+                fail(f"dirty_diff flags on ±0/NaN blocks ({where}): "
+                     f"{flags.tolist()}, want {want.tolist()}")
+            if fp.total != ref.total or not all(
+                    equal(getattr(fp, f), getattr(ref, f))
+                    for f in ("flags", "counts", "offsets", "packed",
+                              "index")) or not torch.equal(fp.flags, want):
+                fail(f"flush_pack on ±0/NaN blocks ({where})")
+            if not (torch.equal(scan[0], want)
+                    and torch.equal(scan[1], fp.counts)
+                    and all(torch.equal(x, y) for x, y in
+                            zip(scan, flush_scan(a, b, impl="ref")))):
+                fail(f"flush_scan on ±0/NaN blocks ({where})")
+            checked += 3
+    return checked
 
 
 #: (block_bytes, bytes) beyond the main path's: whole blocks, a ragged
@@ -254,13 +391,15 @@ GEOMETRIES = ((BLOCK, BLOCK * 33), (BLOCK, BLOCK * 7 + 6),
 
 
 def geometry_cases(gen) -> int:
-    """All four kernels against their plain versions on random bytes in
+    """All seven kernels against their plain versions on random bytes in
     each of ``GEOMETRIES`` (flush_pack with a sparse, a clean and an
-    all-dirty snapshot; apply_unpack shuffled with one corrupted block),
-    and the wrappers' refusal of a misaligned buffer. Returns the number
-    of cases checked."""
+    all-dirty snapshot; apply_unpack shuffled with one corrupted block;
+    the delta gather and scatter of a shuffled subset with the ragged
+    last block in it, and of every block), and the wrappers' refusal of
+    a misaligned buffer. Returns the number of cases checked."""
     import torch
-    from repro_torch.kernels import (apply_unpack, dirty_blocks, flush_pack,
+    from repro_torch.kernels import (apply_delta, apply_unpack, dirty_blocks,
+                                     flush_pack, flush_scan, pack_delta,
                                      popcount_blocks)
     checked = 0
     for bb, n in GEOMETRIES:
@@ -300,7 +439,26 @@ def geometry_cases(gen) -> int:
                 and torch.equal(got.ok, want.ok)
                 and torch.equal(got.counts, want.counts)):
             fail(f"apply_unpack disagrees with its plain version ({where})")
-        checked += 4
+        scan, scan_ref = (flush_scan(cur, snap, block_bytes=bb, impl=impl)
+                          for impl in ("auto", "ref"))
+        if not all(torch.equal(x, y) for x, y in zip(scan, scan_ref)):
+            fail(f"flush_scan disagrees with its plain version ({where})")
+        # half the blocks, the ragged last one among them, in random order
+        some = torch.unique(torch.cat([idx[: nb // 2], idx.new_tensor([nb - 1])]))
+        some = some[torch.randperm(some.numel(), generator=gen, device=DEV)]
+        for ids in (some, idx):
+            delta = pack_delta(cur, ids, block_bytes=bb)
+            if not torch.equal(delta, pack_delta(cur, ids, block_bytes=bb,
+                                                 impl="ref")):
+                fail(f"delta_pack disagrees with its plain version ({where})")
+            got = apply_delta(snap.clone(), delta, ids, block_bytes=bb)
+            want = apply_delta(snap.clone(), delta, ids, block_bytes=bb,
+                               impl="ref")
+            if not torch.equal(got, want):
+                fail(f"delta_apply disagrees with its plain version ({where})")
+        if not torch.equal(got, cur):    # every block: the live buffer
+            fail(f"the delta of every block did not rebuild it ({where})")
+        checked += 7
     if DEV != "cuda":      # a CPU rehearsal: the plain version takes any buffer
         return checked
     x = torch.zeros(BLOCK + 1, dtype=torch.uint8, device=DEV)
@@ -486,6 +644,45 @@ def staged_path(seed: int, layers: int, rate_gbps: float, tmp: str,
     return launches
 
 
+def delta_round_trip(seed: int, layers: int) -> None:
+    """The staged delta chain over the 12 leaves at full width: per leaf,
+    after a seeded update, flush_scan against dirty_diff, popcnt_checksum
+    and flush_pack; pack_dirty against flush_pack's packed rows and ids;
+    apply_delta of the delta onto the snapshot against the live leaf."""
+    import torch
+    from repro_torch.kernels import (apply_delta, dirty_blocks, flush_pack,
+                                     flush_scan, pack_dirty, popcount_blocks)
+    from repro_torch.persistence.state import TINYLLAMA_1_1B_PARAMS, init_state
+
+    state = init_state(TINYLLAMA_1_1B_PARAMS, seed=seed, device=DEV,
+                       layers=layers)
+    snaps = {k: v.clone() for k, v in state.items()}
+    update(state, torch.Generator(device=DEV).manual_seed(seed + 3), 1, layers)
+    dirty = blocks = 0
+    for name in sorted(state):
+        cur, snap = state[name], snaps.pop(name)
+        flags, counts = flush_scan(cur, snap)
+        fp = flush_pack(cur, snap)
+        if not (torch.equal(flags, dirty_blocks(cur, snap))
+                and torch.equal(counts, popcount_blocks(cur))
+                and torch.equal(flags, fp.flags)
+                and torch.equal(counts, fp.counts)):
+            fail(f"flush_scan of {name} disagrees with dirty_diff + "
+                 f"popcnt_checksum or flush_pack")
+        delta, idx, k = pack_dirty(cur, flags)
+        if k != fp.total or not equal(delta, fp.packed[:k]) \
+                or not torch.equal(idx, fp.index[:k]):
+            fail(f"pack_dirty of {name} disagrees with flush_pack")
+        if apply_delta(snap, delta, idx) is not snap or not equal(snap, cur):
+            fail(f"apply_delta of {name}'s delta did not rebuild the leaf")
+        dirty += k
+        blocks += flags.numel()
+        del fp, delta, snap
+    print(f"delta round trip: {len(state)} leaves, {dirty} of {blocks} "
+          f"blocks dirty, each leaf rebuilt from its snapshot and delta",
+          flush=True)
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -507,8 +704,9 @@ def main() -> int:
               "repository's root", file=sys.stderr)
         return 2
     sys.path.insert(0, src)
-    from repro_torch.kernels import apply_unpack, dirty_blocks, flush_pack
-    from repro_torch.kernels import build, popcount_blocks
+    from repro_torch.kernels import (apply_delta, apply_unpack, build,
+                                     dirty_blocks, flush_pack, flush_scan,
+                                     pack_delta, popcount_blocks)
     from repro_torch.persistence.state import TINYLLAMA_1_1B_PARAMS, init_state
 
     # 1. setup ----------------------------------------------------------
@@ -540,7 +738,10 @@ def main() -> int:
 
     # 3. main path ------------------------------------------------------
     wrappers = {"flush_pack": flush_pack, "popcnt_checksum": popcount_blocks,
-                "apply_unpack": apply_unpack, "dirty_diff": dirty_blocks}
+                "apply_unpack": apply_unpack, "dirty_diff": dirty_blocks,
+                "delta_pack": pack_delta, "delta_apply": apply_delta,
+                "flush_scan": flush_scan}
+    delta_chain = ("delta_pack", "delta_apply", "flush_scan")
 
     def counted(fn):
         """``fn()``'s CUDA launches per kernel, counted from 0, and its
@@ -566,7 +767,7 @@ def main() -> int:
         print(f"main path: {time.perf_counter() - t0:.1f} s", flush=True)
         check_launches("main path", main_launches,
                        ("flush_pack", "popcnt_checksum", "apply_unpack"),
-                       ("dirty_diff",))
+                       ("dirty_diff",) + delta_chain)
         del state
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
@@ -574,13 +775,24 @@ def main() -> int:
                                       counted)
         print(f"staged pair: {time.perf_counter() - t0:.1f} s", flush=True)
         check_launches("staged run", staged_launches,
-                       ("dirty_diff", "popcnt_checksum"), ("flush_pack",))
+                       ("dirty_diff", "popcnt_checksum"),
+                       ("flush_pack",) + delta_chain)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    trip_launches, _ = counted(lambda: delta_round_trip(args.seed,
+                                                         args.layers))
+    print(f"delta round trip: {time.perf_counter() - t0:.1f} s", flush=True)
+    check_launches("delta round trip", trip_launches, delta_chain,
+                   ("apply_unpack",))
     # each kernel's launches come from the path it serves: the fused main
-    # path, or for dirty_diff the staged arm of the same manager
+    # path, the staged arm of the same manager for dirty_diff, the delta
+    # round trip for the staged delta chain
     paths = {name: "main" for name in wrappers}
     paths["dirty_diff"] = "staged"
-    launches = {name: (main_launches if paths[name] == "main"
-                       else staged_launches)[name] for name in wrappers}
+    paths.update({name: "delta round trip" for name in delta_chain})
+    by_path = {"main": main_launches, "staged": staged_launches,
+               "delta round trip": trip_launches}
+    launches = {name: by_path[paths[name]][name] for name in wrappers}
 
     # report ------------------------------------------------------------
     replaces = {
@@ -588,15 +800,21 @@ def main() -> int:
         "popcnt_checksum": "src/repro/kernels/popcnt_checksum/kernel.py:38",
         "apply_unpack": "src/repro/kernels/apply_unpack/kernel.py:67",
         "dirty_diff": "src/repro/kernels/dirty_diff/kernel.py:43",
+        "delta_pack": "src/repro/kernels/delta_pack/kernel.py:45",
+        "delta_apply": "src/repro/kernels/delta_pack/kernel.py:69",
+        "flush_scan": "src/repro/kernels/flush_scan/kernel.py:51",
     }
+    sources = {name: name for name in replaces}
+    sources["delta_apply"] = "delta_pack"      # one source, two kernels
     kernels = [{
         "name": name, "route": "cuda",
-        "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+        "source": f"src/repro_torch/kernels/csrc/{sources[name]}.cu",
         "replaces": replaces[name], "launches": launches[name],
         "path": paths[name],
         "max_abs_err": rows[name]["max_abs_err"], "ms": rows[name]["ms"],
         "plain_ms": rows[name]["plain_ms"], "bound_ms": rows[name]["bound_ms"],
-        "bound_by": rows[name]["bound_by"], "library_ms": None,
+        "bound_by": rows[name]["bound_by"],
+        "library_ms": rows[name]["library_ms"],
     } for name in replaces]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -16,7 +16,6 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from repro_torch.kernels import build
@@ -25,6 +24,7 @@ from repro_torch.kernels.common import (
     TPU_TILE,
     VOIDP,
     as_bytes,
+    as_vector,
     check_block_bytes,
     check_kernel_input,
     stream_of,
@@ -53,14 +53,6 @@ class ApplyUnpack(NamedTuple):
     nbad: int
 
 
-def _vector(x, np_dtype, dtype: torch.dtype, device) -> torch.Tensor:
-    if isinstance(x, torch.Tensor):
-        return x.to(device=device, dtype=dtype).reshape(-1).contiguous()
-    return torch.from_numpy(
-        np.ascontiguousarray(np.asarray(x, dtype=np_dtype).reshape(-1))
-    ).to(device=device, dtype=dtype)
-
-
 def apply_unpack(base: torch.Tensor, packed: torch.Tensor, index, expected,
                  *, block_bytes: int = TPU_TILE,
                  impl: str = "auto") -> ApplyUnpack:
@@ -80,8 +72,8 @@ def apply_unpack(base: torch.Tensor, packed: torch.Tensor, index, expected,
         raise ValueError(f"packed ({pk.numel()} bytes) is not whole "
                          f"{block_bytes}-byte blocks")
     k = pk.numel() // block_bytes
-    idx = _vector(index, np.int32, torch.int32, base.device)
-    exp = _vector(expected, np.int64, torch.int64, base.device)
+    idx = as_vector(index, "int32", torch.int32, base.device)
+    exp = as_vector(expected, "int64", torch.int64, base.device)
     if idx.numel() != k or exp.numel() != k:
         raise ValueError(f"index and expected need {k} entries, got "
                          f"{idx.numel()} and {exp.numel()}")

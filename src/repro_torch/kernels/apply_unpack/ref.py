@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.common import block_popcounts, nblocks_for
+from repro_torch.kernels.common import block_popcounts
+from repro_torch.kernels.delta_pack.ref import delta_scatter_ref
 
 
 def apply_unpack_ref(out: torch.Tensor, packed: torch.Tensor,
@@ -24,14 +25,5 @@ def apply_unpack_ref(out: torch.Tensor, packed: torch.Tensor,
     pb = packed.view(k, block_bytes)
     counts = block_popcounts(pb)
     ok = (counts == expected.to(torch.int64)).to(torch.int32)
-    n = out.numel()
-    full = n // block_bytes
-    dst = idx.to(torch.int64)
-    whole = (dst >= 0) & (dst < full)
-    if full:
-        out[: full * block_bytes].view(full, block_bytes)[dst[whole]] = pb[whole]
-    if full < nblocks_for(n, block_bytes):
-        last = torch.nonzero(dst == full).reshape(-1)
-        if last.numel():
-            out[full * block_bytes:] = pb[last[-1], : n - full * block_bytes]
+    delta_scatter_ref(out, packed, idx, block_bytes)
     return ok, counts.to(torch.int32)

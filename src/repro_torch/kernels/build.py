@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 
 #: one shared library per kernel source
 SOURCES: Tuple[str, ...] = ("popcnt_checksum", "dirty_diff", "flush_pack",
-                            "apply_unpack")
+                            "apply_unpack", "delta_pack", "flush_scan")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")

@@ -9,6 +9,15 @@ block — what :func:`as_blocks` does for the plain versions here and what
 itself (``TPU_TILE``) stays: it is a file-format constant recorded in the
 pool superblock, so that either package restores the other's checkpoints.
 
+Dirty flags compare values where the reference does: a block of float16,
+bfloat16 or float32 is dirty iff some element differs in IEEE terms (±0
+are equal, a NaN differs from everything, itself included), as ``cur !=
+snap`` in the JAX package. Integer and bool dtypes compare their bytes,
+which is their value compare; other floating and complex dtypes are
+refused, as the reference takes 1-, 2- and 4-byte dtypes only. The
+checkpoint hands the kernels ``uint8`` views, so on its path a flag is a
+byte compare in both packages.
+
 Dispatch follows the tensor, not a backend probe: a CUDA tensor launches
 the kernel (or raises), a CPU tensor takes the plain version, and
 ``impl="ref"`` forces the plain version on any device.
@@ -18,13 +27,15 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.core.blocks import TPU_TILE
 
-__all__ = ["IMPLS", "TPU_TILE", "as_blocks", "as_bytes", "block_popcounts",
-           "check_block_bytes", "check_kernel_input", "nblocks_for",
-           "stream_of", "use_kernel"]
+__all__ = ["IMPLS", "TPU_TILE", "as_blocks", "as_bytes", "as_vector",
+           "block_popcounts", "blocks_differ", "check_block_bytes",
+           "check_kernel_input", "compare_kind", "nblocks_for", "stream_of",
+           "use_kernel"]
 
 #: the ``impl=`` values every wrapper takes (the JAX package's names):
 #: "auto", "fused" and "pallas" run the hand-written kernel on a CUDA
@@ -37,6 +48,13 @@ MAX_BLOCK_BYTES = 1 << 28
 
 VOIDP = ctypes.c_void_p
 I64 = ctypes.c_longlong
+I32 = ctypes.c_int
+
+#: how the dirty-flag kernels compare a lane (``repro::Compare`` in
+#: ``csrc/blocks.cuh``): bytes, or IEEE values of the lane's float type
+BYTES, F16, BF16, F32 = range(4)
+_LANE_DTYPE = {F16: torch.float16, BF16: torch.bfloat16, F32: torch.float32}
+_KIND_OF = {dt: kind for kind, dt in _LANE_DTYPE.items()}
 
 
 def use_kernel(t: torch.Tensor, impl: str) -> bool:
@@ -61,6 +79,39 @@ def as_bytes(t: torch.Tensor) -> torch.Tensor:
         raise ValueError("the persistence kernels take contiguous tensors")
     flat = t.reshape(-1)
     return flat if flat.dtype == torch.uint8 else flat.view(torch.uint8)
+
+
+def compare_kind(dtype: torch.dtype) -> int:
+    """The dirty-flag compare of ``dtype``: IEEE values for float16,
+    bfloat16 and float32, bytes for integer and bool dtypes."""
+    if dtype in _KIND_OF:
+        return _KIND_OF[dtype]
+    if dtype.is_floating_point or dtype.is_complex:
+        raise ValueError(f"dirty flags compare float16, bfloat16 and float32 "
+                         f"by value, as the reference does; {dtype} is not "
+                         f"supported (pass a uint8 view to compare bytes)")
+    return BYTES
+
+
+def blocks_differ(cur: torch.Tensor, snap: torch.Tensor, block_bytes: int,
+                  kind: int) -> torch.Tensor:
+    """Plain ``(nblocks,)`` bool: some lane of a block of flat uint8
+    ``cur`` differs from ``snap``'s under compare ``kind`` (the tails are
+    zero-padded on both sides, so they never differ)."""
+    a, b = as_blocks(cur, block_bytes), as_blocks(snap, block_bytes)
+    if kind != BYTES:
+        a, b = a.view(_LANE_DTYPE[kind]), b.view(_LANE_DTYPE[kind])
+    return (a != b).any(dim=1)
+
+
+def as_vector(x, np_dtype, dtype: torch.dtype, device) -> torch.Tensor:
+    """A flat contiguous ``dtype`` tensor on ``device`` from a tensor or
+    anything numpy takes (an index or a vector of checksums)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=dtype).reshape(-1).contiguous()
+    return torch.from_numpy(
+        np.ascontiguousarray(np.asarray(x, dtype=np_dtype).reshape(-1))
+    ).to(device=device, dtype=dtype)
 
 
 def nblocks_for(nbytes: int, block_bytes: int) -> int:

@@ -6,8 +6,10 @@
 // src/repro/kernels/flush_pack/kernel.py. That kernel carries the running
 // prefix sum in SMEM across a grid that runs in order; CTAs on Hopper run
 // in no order, so the pass is three launches on one stream:
-//   1. flush_scan:  one CTA per block — flag (any byte differs) and
-//                   popcount of the live bytes, one read of each buffer;
+//   1. scan:        one CTA per block — flag (some lane differs, under the
+//                   wrapper's compare kind) and popcount of the live
+//                   bytes, one read of each buffer (`repro::scan_block`,
+//                   shared with flush_scan.cu);
 //   2. prefix_sum:  one CTA loops over the flags (at most ~124k per leaf
 //                   at 4 KiB blocks) with warp-shuffle scans, carrying the
 //                   running total in shared memory; writes n+1 offsets,
@@ -31,28 +33,12 @@ constexpr int kThreads = 128;
 constexpr int kScanThreads = 1024;
 constexpr int kScanItems = 4;
 
+template <int K>
 __global__ void __launch_bounds__(kThreads)
-flush_scan_kernel(const unsigned char* __restrict__ cur,
-                  const unsigned char* __restrict__ snap, long long nbytes,
-                  long long block_bytes, int* __restrict__ flags,
-                  unsigned* __restrict__ counts) {
-  const long long b = blockIdx.x;
-  const long long lo = b * block_bytes;
-  const long long hi = lo + block_bytes < nbytes ? lo + block_bytes : nbytes;
-  unsigned c = 0u;
-  int d = 0;
-#pragma unroll 4
-  for (long long off = lo + 16LL * threadIdx.x; off < hi; off += 16LL * kThreads) {
-    const uint4 a = repro::load16(cur, off, hi);
-    c += repro::popc16(a);
-    d |= repro::differs16(a, repro::load16(snap, off, hi));
-  }
-  d = __syncthreads_or(d);
-  c = repro::block_sum<kThreads>(c);
-  if (threadIdx.x == 0) {
-    flags[b] = d ? 1 : 0;
-    counts[b] = c;
-  }
+scan_kernel(const unsigned char* __restrict__ cur, const unsigned char* __restrict__ snap,
+            long long nbytes, long long block_bytes, int* __restrict__ flags,
+            unsigned* __restrict__ counts) {
+  repro::scan_block<K, kThreads>(cur, snap, nbytes, block_bytes, flags, counts);
 }
 
 // offsets[i] = sum(flags[:i]) for i in [0, n]; offsets[n] is the total.
@@ -137,21 +123,24 @@ pack_kernel(const unsigned char* __restrict__ cur, long long nbytes,
 
 }  // namespace
 
-// cur, snap: `nbytes` bytes each, 16-byte aligned. Outputs (all written):
+// cur, snap: `nbytes` bytes each, 16-byte aligned; kind: a repro::Compare.
+// Outputs (all written):
 // flags, offsets[0:nblocks+1] int32; counts uint32; packed
 // nblocks*block_bytes bytes (16-byte aligned); index int32[nblocks].
 // Returns the cudaError_t of the first launch that failed, else 0.
 extern "C" int flush_pack(const void* cur, const void* snap, long long nbytes,
-                          long long block_bytes, long long nblocks, void* flags,
-                          void* counts, void* offsets, void* packed, void* index,
-                          void* stream) {
+                          long long block_bytes, long long nblocks, int kind,
+                          void* flags, void* counts, void* offsets, void* packed,
+                          void* index, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   const unsigned char* c = static_cast<const unsigned char*>(cur);
   if (nblocks > 0) {
-    flush_scan_kernel<<<(unsigned)nblocks, kThreads, 0, s>>>(
-        c, static_cast<const unsigned char*>(snap), nbytes, block_bytes,
-        static_cast<int*>(flags), static_cast<unsigned*>(counts));
-    cudaError_t e = cudaGetLastError();
+    cudaError_t e = repro::with_compare(kind, [&](auto k) {
+      scan_kernel<decltype(k)::value><<<(unsigned)nblocks, kThreads, 0, s>>>(
+          c, static_cast<const unsigned char*>(snap), nbytes, block_bytes,
+          static_cast<int*>(flags), static_cast<unsigned*>(counts));
+    });
+    if (e == cudaSuccess) e = cudaGetLastError();
     if (e != cudaSuccess) return (int)e;
   }
   prefix_sum_kernel<<<1, kScanThreads, 0, s>>>(static_cast<const int*>(flags), nblocks,

@@ -20,26 +20,29 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.common import (
+    I32,
     I64,
     TPU_TILE,
     VOIDP,
     as_bytes,
     check_block_bytes,
     check_kernel_input,
+    compare_kind,
     nblocks_for,
     stream_of,
     use_kernel,
 )
 from repro_torch.kernels.flush_pack.ref import flush_pack_ref
 
-_SIGNATURES = {"flush_pack": (VOIDP, VOIDP, I64, I64, I64, VOIDP, VOIDP,
-                              VOIDP, VOIDP, VOIDP, VOIDP)}
+_SIGNATURES = {"flush_pack": (VOIDP, VOIDP, I64, I64, I64, I32, VOIDP,
+                              VOIDP, VOIDP, VOIDP, VOIDP, VOIDP)}
 
 
 class FlushPack(NamedTuple):
     """Everything one fused pass yields about a buffer.
 
-    ``flags``: (nblocks,) int32 dirty bitmap vs the snapshot.
+    ``flags``: (nblocks,) int32 dirty bitmap vs the snapshot (values for
+    a floating dtype, else bytes, as ``dirty_blocks``).
     ``counts``: (nblocks,) int32 popcounts of the live bytes.
     ``offsets``: (nblocks,) int32 exclusive prefix sum of ``flags``.
     ``packed``: (nblocks, block_bytes // itemsize) in the live dtype; the
@@ -69,10 +72,11 @@ def flush_pack(cur: torch.Tensor, snap: torch.Tensor, *,
     if cur.device != snap.device:
         raise ValueError("cur and snap must lie on one device")
     block_bytes = check_block_bytes(block_bytes)
+    kind = compare_kind(cur.dtype)
     a, b = as_bytes(cur), as_bytes(snap)
     if not use_kernel(a, impl):
         flags, counts, offsets, packed, index, total = flush_pack_ref(
-            a, b, block_bytes)
+            a, b, block_bytes, kind)
     else:
         check_kernel_input(a, "cur")
         check_kernel_input(b, "snap")
@@ -86,7 +90,7 @@ def flush_pack(cur: torch.Tensor, snap: torch.Tensor, *,
         with torch.cuda.device(dev):
             lib = build.library("flush_pack", _SIGNATURES)
             build.check(lib.flush_pack(
-                a.data_ptr(), b.data_ptr(), a.numel(), block_bytes, nb,
+                a.data_ptr(), b.data_ptr(), a.numel(), block_bytes, nb, kind,
                 flags.data_ptr(), counts.data_ptr(), offs.data_ptr(),
                 packed.data_ptr(), index.data_ptr(), stream_of(a)),
                 "flush_pack")

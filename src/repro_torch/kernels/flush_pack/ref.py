@@ -12,7 +12,12 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.kernels.common import as_blocks, block_popcounts
+from repro_torch.kernels.common import (
+    BYTES,
+    as_blocks,
+    block_popcounts,
+    blocks_differ,
+)
 
 
 def exclusive_prefix_sum(flags: torch.Tensor) -> torch.Tensor:
@@ -33,15 +38,16 @@ def compact_index(flags: torch.Tensor) -> Tuple[torch.Tensor, int]:
     return index, total
 
 
-def flush_pack_ref(cur: torch.Tensor, snap: torch.Tensor, block_bytes: int):
+def flush_pack_ref(cur: torch.Tensor, snap: torch.Tensor, block_bytes: int,
+                   kind: int = BYTES):
     """Flat uint8 ``cur``/``snap`` → ``(flags, counts, offsets, packed,
-    index, total)``: int32 flags, int32 popcounts of ``cur``, int32
+    index, total)``: int32 flags (lanes compared as ``kind``), int32
+    popcounts of ``cur``, int32
     exclusive prefix sum of the flags, ``(nblocks, block_bytes)`` uint8
     ``packed`` whose first ``total`` rows are the dirty blocks in
     ascending order, int32 ``index`` of their ids; tails zero."""
     cb = as_blocks(cur, block_bytes)
-    sb = as_blocks(snap, block_bytes)
-    flags = (cb != sb).any(dim=1).to(torch.int32)
+    flags = blocks_differ(cur, snap, block_bytes, kind).to(torch.int32)
     counts = block_popcounts(cb).to(torch.int32)
     offsets = exclusive_prefix_sum(flags)
     index, total = compact_index(flags)

@@ -18,6 +18,9 @@ def test_persistence_imports_with_jax_and_repro_blocked():
         import repro_torch.persistence
         import repro_torch.kernels
         import repro_torch.kernels.build
+        import repro_torch.kernels.delta_pack
+        import repro_torch.kernels.flush_scan
+        from repro_torch.kernels import apply_delta, flush_scan, pack_delta, pack_dirty
         loaded = [m for m, mod in sys.modules.items() if mod is not None
                   and (m == "jax" or m.startswith(("jax.", "repro.")))]
         assert not loaded, loaded

@@ -6,7 +6,7 @@ every output is bytes or integers, so the tolerance is 0. The JAX side
 runs its jnp reference (``impl="ref"``) across the sweep and its Pallas
 kernel in interpret mode (``impl="pallas"``) on one small case per
 kernel. The CUDA kernels themselves run only on a card: ``chip_smoke.py``
-holds each against its plain version there (and ``test_torch_cuda.py``).
+holds each against its plain version there.
 """
 
 import jax.numpy as jnp
@@ -53,6 +53,27 @@ def dirtied(rng, snap, positions):
     for p in positions:
         cur[p] = rand(rng, (1,), snap.dtype)[0]
     return cur
+
+
+def signed_zero_and_nan(dtype):
+    """``(cur, snap, flags)``: six 4 KiB blocks of a float ``dtype`` and
+    the reference's dirty flags. Block 0 holds -0.0 against +0.0 (equal
+    values, other bytes: clean), block 1 the same NaN on both sides (NaN
+    != NaN: dirty), block 2 a NaN against 1.0, block 3 +0.0 against
+    -0.0 and a changed value, block 4 the same bytes on both sides, and
+    the ragged block 5 a NaN only in ``snap``."""
+    per = 4096 // np.dtype(dtype).itemsize
+    snap = np.ones(5 * per + 7, dtype=dtype)
+    cur = snap.copy()
+    snap[[0, 5, per - 1]] = 0.0
+    cur[[0, 5, per - 1]] = -0.0
+    cur[per + 3] = snap[per + 3] = np.nan
+    snap[2 * per + 9] = np.nan
+    snap[3 * per] = -0.0
+    cur[3 * per] = 0.0
+    cur[3 * per + 1] = 2.0
+    snap[5 * per + 6] = np.nan
+    return cur, snap, np.array([0, 1, 1, 1, 0, 1])
 
 
 def tt(a: np.ndarray) -> torch.Tensor:
@@ -120,6 +141,43 @@ def test_dirty_blocks_matches_jax(dtype, block_bytes, n):
     got = dirty_blocks(tt(cur), tt(snap), block_bytes=block_bytes)
     np.testing.assert_array_equal(ints(got), ints(want))
     assert int(got.sum()) >= 1
+
+
+@pytest.mark.parametrize("dtype", [np.float32, ml_dtypes.bfloat16, np.float16])
+@pytest.mark.parametrize("kernel", [dirty_blocks, flush_pack],
+                         ids=lambda f: f.__name__)
+@pytest.mark.parametrize("jax_impl", ["ref", "pallas"])
+def test_float_dirty_flags_match_jax(dtype, kernel, jax_impl):
+    """Typed float tensors compare values, as the reference does: ±0 are
+    equal and a NaN differs from itself; their uint8 views compare
+    bytes (the checkpoint's case)."""
+    cur, snap, want = signed_zero_and_nan(dtype)
+    jax_op = {dirty_blocks: jax_dirty_blocks, flush_pack: jax_flush_pack}[kernel]
+    jgot = jax_op(jnp.asarray(cur), jnp.asarray(snap), impl=jax_impl)
+    got = kernel(tt(cur), tt(snap))
+    if kernel is flush_pack:
+        assert_flush_pack_equal(got, jgot)
+        got, jgot = got.flags, jgot.flags
+    np.testing.assert_array_equal(ints(got), want)
+    np.testing.assert_array_equal(ints(got), ints(jgot))
+    as_u8 = kernel(as_bytes(tt(cur)), as_bytes(tt(snap)))
+    byte_flags = (as_blocks(as_bytes(tt(cur)), 4096)
+                  != as_blocks(as_bytes(tt(snap)), 4096)).any(dim=1)
+    np.testing.assert_array_equal(
+        ints(as_u8.flags if kernel is flush_pack else as_u8),
+        ints(byte_flags))
+
+
+@pytest.mark.parametrize("kernel", [dirty_blocks, flush_pack],
+                         ids=lambda f: f.__name__)
+def test_dirty_flags_refuse_other_float_dtypes(kernel):
+    """float64 and complex have no counterpart in the reference, which
+    takes 1-, 2- and 4-byte dtypes; their bytes can still be compared."""
+    for dtype in (torch.float64, torch.complex64):
+        x = torch.zeros(512, dtype=dtype)
+        with pytest.raises(ValueError, match="uint8 view"):
+            kernel(x, x.clone())
+        kernel(as_bytes(x), as_bytes(x.clone()))
 
 
 def test_dirty_blocks_identical_is_clean():
