@@ -3,7 +3,7 @@
 
 Run from the repository root:
 
-    python3 chip_smoke.py [--seed 0] [--layers 22]
+    python3 chip_smoke.py [--seed 0] [--layers 22] [--train-layers 2]
 
 Phases (any failure exits non-zero):
 
@@ -22,7 +22,9 @@ Phases (any failure exits non-zero):
    blocks, a page plus a 4 KiB tail); each line gives the kernel's and the
    plain version's times beside the least time the card could take (bytes
    over 3.35 TB/s) and, for the gather and the scatter, the time of the
-   one PyTorch call that computes the same function.
+   one PyTorch call that computes the same function; then the trainer's
+   leaf kinds: the 4-byte int32 ``o/count`` and the f32 moment
+   ``o/m/embed``.
 3. main path — tinyllama-1.1b's 12 parameter leaves at full width on the
    card, from ``--seed``: WAL commit + full save, two seeded partial
    updates each with a WAL commit and a delta save, the pages of a 4th
@@ -41,12 +43,22 @@ Phases (any failure exits non-zero):
    the snapshot gives back the live leaf. Its own counts: flush_scan,
    delta_pack and delta_apply positive (and 0 on the main path and the
    staged run).
+6. trainer path — ``repro_torch.launch.train.Trainer`` on tinyllama-1.1b
+   at full width, ``--train-layers`` deep, batch 8 x seq 512: run 1
+   trains steps 0-2, saves step 2 and crashes at step 3; run 2 restores
+   step 2 tensor for tensor, repeats step 2's loss, and saves step 4
+   through ``AsyncFlusher``; a fresh restore returns that save tensor for
+   tensor; the card's loss on 128 tokens is held against the CPU's. Its
+   own counts must equal the prediction from its 37 leaves:
+   popcnt_checksum 37, flush_pack 111, apply_unpack 74, the rest 0. It
+   prints each step's, save's and restore's wall time.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
 card's name and power limit and one ``{"kernels": [...]}`` line, whose
 ``launches`` are each kernel's CUDA launches on the path it serves
-(``path``: the main path, the staged run for dirty_diff, or the delta
-round trip for flush_scan, delta_pack and delta_apply).
+(``path``: the trainer path for flush_pack, popcnt_checksum and
+apply_unpack, the staged run for dirty_diff, or the delta round trip for
+flush_scan, delta_pack and delta_apply).
 """
 
 from __future__ import annotations
@@ -108,15 +120,12 @@ def cuda_ms(fn, reps: int) -> float:
 
 def copy_rate_gbps() -> float:
     """Device-memory rate: bytes read plus written by a 2 GiB device copy
-    over its time (CUDA events, 10 copies)."""
+    over its time (CUDA events, 5 copies after one)."""
     import torch
-    n = 1 << 31
-    x = torch.ones(n, dtype=torch.uint8, device=DEV)
-    y = torch.empty_like(x)
-    ms = cuda_ms(lambda: y.copy_(x), reps=10)
-    del x, y
+    from repro_torch.launch.train import measure_copy_gbps
+    rate = measure_copy_gbps(DEV, 1 << 31)
     torch.cuda.empty_cache()
-    return 2 * n / (ms * 1e-3) / 1e9
+    return rate
 
 
 def bound_ms(nbytes: int, int_ops: int) -> tuple:
@@ -309,6 +318,7 @@ def kernel_phase(state, seed: int) -> dict:
     del delta, base, base_blocks
     checked += float_flag_cases()
     checked += geometry_cases(gen)
+    checked += trainer_leaf_cases(gen)
     for name, row in rows.items():
         row["max_abs_err"] = 0   # every comparison above is bit for bit
         row.setdefault("library_ms", None)
@@ -331,6 +341,72 @@ def equal(a, b) -> bool:
     from repro_torch.kernels.common import as_bytes
     return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
         as_bytes(a.contiguous()), as_bytes(b.contiguous()))
+
+
+def same_flush_pack(got, want) -> bool:
+    return got.total == want.total and all(
+        equal(getattr(got, f), getattr(want, f))
+        for f in ("flags", "counts", "offsets", "packed", "index"))
+
+
+def trainer_leaf_cases(gen) -> int:
+    """The leaf kinds the trainer adds to the checkpoint, against the
+    plain versions bit for bit: the 4-byte int32 ``o/count`` (one block
+    that is almost all ragged tail) through popcnt_checksum, flush_pack
+    and apply_unpack (one 128 KiB restore page, intact and corrupted),
+    and the largest f32 moment, ``o/m/embed`` (32000, 2048), through
+    flush_pack with 300 rows and with every value updated, as the
+    checkpoint passes it (``uint8`` views) and as f32 values. Returns the
+    number of cases checked."""
+    import torch
+    from repro_torch.kernels import apply_unpack, flush_pack, popcount_blocks
+    from repro_torch.kernels.common import as_bytes
+    checked = 0
+    count = torch.tensor(7, dtype=torch.int32, device=DEV)
+    cb = as_bytes(count)
+    for x in (count, cb):
+        if not torch.equal(popcount_blocks(x), popcount_blocks(x, impl="ref")):
+            fail("popcnt_checksum disagrees with its plain version (o/count)")
+        checked += 1
+    prev = as_bytes(torch.tensor(6, dtype=torch.int32, device=DEV))
+    for label, snap, flag in (("changed", prev, 1), ("clean", cb.clone(), 0)):
+        got = flush_pack(cb, snap)
+        if not same_flush_pack(got, flush_pack(cb, snap, impl="ref")) \
+                or got.flags.tolist() != [flag]:
+            fail(f"flush_pack disagrees with its plain version (o/count, "
+                 f"{label})")
+        checked += 1
+    packed = torch.zeros(PAGE, dtype=torch.uint8, device=DEV)
+    packed[:4] = cb
+    exp = popcount_blocks(packed, block_bytes=PAGE, impl="ref").to(torch.int64)
+    one = torch.zeros(1, dtype=torch.int32, device=DEV)
+    for e, nbad in ((exp, 0), (exp + 1, 1)):
+        got, want = (apply_unpack(torch.zeros(PAGE, dtype=torch.uint8,
+                                              device=DEV), packed, one, e,
+                                  block_bytes=PAGE, impl=impl)
+                     for impl in ("auto", "ref"))
+        if not (equal(got.out, want.out) and torch.equal(got.ok, want.ok)
+                and torch.equal(got.counts, want.counts)
+                and got.nbad == want.nbad == nbad
+                and equal(got.out[:4], cb)):
+            fail(f"apply_unpack disagrees with its plain version (o/count, "
+                 f"{nbad} bad)")
+        checked += 1
+    m = torch.randn(32000, 2048, generator=gen, device=DEV) * 1e-3
+    g = torch.randn(32000, 2048, generator=gen, device=DEV)
+    rows = torch.randint(0, 32000, (300,), generator=gen, device=DEV)
+    some = m.clone()
+    some[rows] = 0.9 * some[rows] + 0.1 * g[rows]
+    every = 0.9 * m + 0.1 * g
+    del g
+    for label, cur in (("300 rows", some), ("every value", every)):
+        for a, b in ((as_bytes(cur), as_bytes(m)), (cur, m)):
+            if not same_flush_pack(flush_pack(a, b),
+                                   flush_pack(a, b, impl="ref")):
+                fail(f"flush_pack disagrees with its plain version "
+                     f"(o/m/embed f32, {label}, {a.dtype})")
+            checked += 1
+    return checked
 
 
 def float_flag_cases() -> int:
@@ -683,6 +759,179 @@ def delta_round_trip(seed: int, layers: int) -> None:
           flush=True)
 
 
+def trainer_path(seed: int, layers: int, rate_gbps: float, tmp: str, *,
+                 batch: int = 8, seq: int = 512,
+                 reduced: bool = False) -> int:
+    """The trainer through ``repro_torch.launch.train.Trainer`` at
+    tinyllama-1.1b's full width and ``layers`` of its depth (``reduced``
+    takes the small CPU test configuration instead, for a rehearsal):
+
+    1. run 1 trains steps 0-2, saves at step 2 (its first save: one
+       popcnt_checksum a leaf), and crashes at step 3, the WAL at step 3;
+    2. run 2, a fresh trainer on the same directory, restores step 2
+       (apply_unpack) tensor for tensor as run 1 saved it, repeats step 2
+       with run 1's loss, trains step 3 and saves step 4 through
+       ``AsyncFlusher`` on a worker thread (flush_pack);
+    3. a fresh manager's restore (apply_unpack) gives back run 2's final
+       state tensor for tensor;
+    4. the card's loss on batch 0's first row, first 128 tokens, against
+       the port's CPU forward with the same parameters.
+
+    Returns the number of checkpointed leaves."""
+    import math
+    import statistics
+    import torch
+    from repro_torch.core.costmodel import PMemCostModel
+    from repro_torch.launch.train import Trainer, TrainerConfig
+    from repro_torch.models import lm_loss
+    from repro_torch.persistence import CheckpointConfig, CheckpointManager
+    from repro_torch.persistence.state import flatten_state, unflatten_state
+
+    cm = PMemCostModel(hbm_read_bw_gbps=rate_gbps)
+    out = os.path.join(tmp, "train")
+    tc = dict(arch="tinyllama-1.1b", reduced=reduced, layers=layers,
+              steps=4, ckpt_every=2, batch=batch, seq=seq, out=out,
+              device=DEV, manifest_capacity=MANIFEST, seed=seed)
+    step_s, saves = [], []
+
+    def timed(trainer):
+        """Time each train step and each save of ``trainer``; keep a
+        device clone of what each save is handed."""
+        step_fn, save = trainer.step_fn, trainer.manager.save
+
+        def step(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = step_fn(*a)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            return res
+
+        def saving(step_no, state):
+            clone = {k: v.clone() for k, v in state.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rep = save(step_no, state)
+            saves.append((step_no, clone, rep, time.perf_counter() - t0))
+            return rep
+
+        trainer.step_fn, trainer.manager.save = step, saving
+
+    # 1. run 1: steps 0-2, save at 2, crash at 3 -------------------------
+    t1 = Trainer(TrainerConfig(async_flush=False, **tc), cost_model=cm)
+    cfg = t1.cfg
+    timed(t1)
+    r1 = t1.run(crash_at=3)
+    n_leaves = len(t1._ckpt_state())
+    nbytes = sum(v.numel() * v.element_size()
+                 for v in t1._ckpt_state().values())
+    print(f"trainer: {cfg.name} d_model={cfg.d_model} heads={cfg.num_heads} "
+          f"kv={cfg.num_kv_heads} d_ff={cfg.d_ff} vocab={cfg.vocab_size} "
+          f"layers={cfg.num_layers}; {n_leaves} leaves, {nbytes} bytes "
+          f"checkpointed; batch {batch} x seq {seq}", flush=True)
+    losses1 = r1["losses"]
+    if r1.get("crashed_at") != 3 or len(losses1) != 3:
+        fail(f"run 1 did not crash at step 3: {r1}")
+    if t1.wal.last is None or t1.wal.last.step != 3:
+        fail(f"run 1's WAL is at {t1.wal.last}, expected step 3")
+    if not all(math.isfinite(x) for x in losses1):
+        fail(f"run 1's losses are not finite: {losses1}")
+    if abs(losses1[0] - math.log(cfg.vocab_size)) > 1.0:
+        fail(f"first loss {losses1[0]} is not within 1.0 of "
+             f"ln {cfg.vocab_size}")
+    ((step_no, saved, rep1, save1_s),) = saves
+    if step_no != 2:
+        fail(f"run 1 saved step {step_no}, expected 2")
+    print(report_line("trainer save 2 (run 1, first save)", rep1, save1_s),
+          flush=True)
+    t1.manager.pmem.crash(evict=lambda li: False)
+    t1.wal_pmem.crash(evict=lambda li: False)
+    del t1
+    torch.cuda.empty_cache()
+
+    # 2. run 2: restore step 2, steps 2-3, async save at 4 ----------------
+    saves.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t2 = Trainer(TrainerConfig(async_flush=True, **tc), cost_model=cm)
+    torch.cuda.synchronize()
+    print(report_line("trainer restore (run 2)", t2.manager.last_restore,
+                      time.perf_counter() - t0), flush=True)
+    if t2.start_step != 2:
+        fail(f"run 2 starts at step {t2.start_step}, expected 2")
+    live = t2._ckpt_state()
+    if list(live) != list(saved):
+        fail("run 2's state has another key set than run 1 saved")
+    for k, v in live.items():
+        if not torch.equal(v, saved[k]):
+            fail(f"restored {k} differs from what run 1 saved at step 2")
+    del saved, live
+    timed(t2)
+    r2 = t2.run()
+    losses2 = r2["losses"]
+    bit_equal = losses2[0] == losses1[2]
+    print(f"trainer: losses {losses1!r} (run 1, steps 0-2; ln "
+          f"{cfg.vocab_size} = {math.log(cfg.vocab_size):.4f}), "
+          f"{losses2!r} (run 2, steps 2-3)", flush=True)
+    print(f"trainer: step 2's loss {losses1[2]!r} (run 1) and "
+          f"{losses2[0]!r} (run 2 after restore): "
+          f"{'bit-equal' if bit_equal else 'not bit-equal'}", flush=True)
+    if not math.isclose(losses2[0], losses1[2], rel_tol=1e-4):
+        fail("run 2's loss at step 2 differs from run 1's by more than "
+             "1e-4 relative")
+    if t2.wal.last is None or t2.wal.last.step != 4:
+        fail(f"run 2's WAL is at {t2.wal.last}, expected step 4")
+    ((step_no, _, rep2, save2_s),) = saves
+    if step_no != 4 or rep2.pages_cow == 0 or t2.flusher.errors:
+        fail(f"run 2's async save: step {step_no}, {rep2.pages_cow} CoW "
+             f"pages, errors {t2.flusher.errors}")
+    print(report_line("trainer save 4 (run 2, AsyncFlusher)", rep2,
+                      save2_s), flush=True)
+    saves.clear()
+
+    # 3. a fresh restore of the async save --------------------------------
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m3 = CheckpointManager(os.path.join(out, "ckpt.pmem"),
+                           CheckpointConfig(page_size=PAGE,
+                                            manifest_capacity=MANIFEST),
+                           device=DEV, cost_model=cm)
+    step_no, got = m3.restore()
+    torch.cuda.synchronize()
+    print(report_line("trainer fresh restore", m3.last_restore,
+                      time.perf_counter() - t0), flush=True)
+    live = t2._ckpt_state()
+    if step_no != 4 or set(got) != set(live):
+        fail(f"the fresh restore returned step {step_no}, expected 4")
+    for k, v in live.items():
+        if not torch.equal(got[k], v):
+            fail(f"the fresh restore's {k} differs from run 2's final state")
+    del got, m3
+
+    # 4. the card's model math against the CPU's ---------------------------
+    b0 = t2.pipeline.batch_at(0)
+    row = {k: torch.from_numpy(v[:1, :128]) for k, v in b0.items()}
+    with torch.no_grad():
+        card, _ = lm_loss(t2.params, cfg, {k: v.to(DEV)
+                                           for k, v in row.items()})
+        host = {k: v.detach().cpu() for k, v in flatten_state(t2.params).items()}
+        cpu, _ = lm_loss(unflatten_state(host), cfg, row)
+    rel = abs(float(card) - float(cpu)) / abs(float(cpu))
+    print(f"trainer: loss on batch 0's first row ({row['tokens'].shape[1]} "
+          f"tokens): card "
+          f"{float(card)!r}, CPU {float(cpu)!r}, relative difference "
+          f"{rel:.3e} (limit 2e-2)", flush=True)
+    if not rel <= 2e-2:
+        fail("the card's forward disagrees with the CPU's")
+    med = statistics.median(step_s)
+    print(f"trainer: train step wall s {json.dumps([round(x, 4) for x in step_s])}"
+          f"; median {med:.4f} s, {batch * seq / med:.1f} tokens/s "
+          f"({len(step_s)} steps, after torch.cuda.synchronize())",
+          flush=True)
+    del t2
+    return n_leaves
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -691,6 +940,9 @@ def main() -> int:
     ap.add_argument("--layers", type=int, default=22,
                     help="decoder depth (tinyllama-1.1b has 22); width is "
                          "never cut")
+    ap.add_argument("--train-layers", type=int, default=2,
+                    help="decoder depth of the trainer path (its state, "
+                         "AdamW moments included, is 2.2 GB at 2 layers)")
     args = ap.parse_args()
 
     import torch
@@ -725,9 +977,13 @@ def main() -> int:
     print(f"device-memory rate (bytes read + written by a 2 GiB device copy "
           f"over its time, {card}): {rate:.1f} GB/s; the port's cost model "
           f"prices scans with it", flush=True)
-    cuts = {"model": "tinyllama-1.1b parameters (12 bf16 leaves)",
+    cuts = {"checkpoint paths": "tinyllama-1.1b parameters (12 bf16 "
+                                "leaves), random updates",
             "layers": f"{args.layers} of 22",
-            "left out": "AdamW f32 moments (they come with the trainer)"}
+            "trainer path": "tinyllama-1.1b at full width, trained with "
+                            "AdamW (37 leaves with the moments), batch 8 x "
+                            "seq 512",
+            "trainer layers": f"{args.train_layers} of 22"}
     print("reduced: " + json.dumps(cuts), flush=True)
 
     # 2. kernels --------------------------------------------------------
@@ -784,13 +1040,30 @@ def main() -> int:
     print(f"delta round trip: {time.perf_counter() - t0:.1f} s", flush=True)
     check_launches("delta round trip", trip_launches, delta_chain,
                    ("apply_unpack",))
-    # each kernel's launches come from the path it serves: the fused main
-    # path, the staged arm of the same manager for dirty_diff, the delta
-    # round trip for the staged delta chain
-    paths = {name: "main" for name in wrappers}
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        t0 = time.perf_counter()
+        train_launches, leaves = counted(lambda: trainer_path(
+            args.seed, args.train_layers, rate, tmp))
+        print(f"trainer path: {time.perf_counter() - t0:.1f} s", flush=True)
+    check_launches("trainer path", train_launches,
+                   ("flush_pack", "popcnt_checksum", "apply_unpack"),
+                   ("dirty_diff",) + delta_chain)
+    # per leaf (37): one popcnt_checksum on run 1's first save, one
+    # apply_unpack on each of the two restores, one flush_pack call (3
+    # CUDA launches) on run 2's save
+    want = {"popcnt_checksum": leaves, "apply_unpack": 2 * leaves,
+            "flush_pack": 3 * leaves}
+    if leaves != 37 or {k: train_launches[k] for k in want} != want:
+        fail(f"trainer path launches {train_launches}, predicted {want}")
+    # each kernel's launches come from the path it serves: the trainer
+    # for the three kernels of a training run's checkpoints, the staged
+    # arm of the checkpoint manager for dirty_diff, the delta round trip
+    # for the staged delta chain
+    paths = {name: "trainer" for name in wrappers}
     paths["dirty_diff"] = "staged"
     paths.update({name: "delta round trip" for name in delta_chain})
-    by_path = {"main": main_launches, "staged": staged_launches,
+    by_path = {"trainer": train_launches, "staged": staged_launches,
                "delta round trip": trip_launches}
     launches = {name: by_path[paths[name]][name] for name in wrappers}
 

@@ -1,0 +1,67 @@
+"""Architecture registry of the port: ``get_config(name)`` / ``--arch <id>``.
+
+The port's copy of ``repro.configs``. Only the dense family is ported:
+``tinyllama-1.1b`` resolves; every other architecture of the JAX
+package's registry raises ``NotImplementedError`` naming the ``ROADMAP.md``
+item that ports it, and is never mapped to another model.
+"""
+
+from __future__ import annotations
+
+import importlib
+from typing import Dict, List
+
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["ALIASES", "ARCH_IDS", "get_config", "get_reduced"]
+
+#: the architectures this package can build
+ARCH_IDS: List[str] = ["tinyllama_1_1b"]
+
+#: assignment-sheet name → module id (the JAX package's table)
+ALIASES: Dict[str, str] = {
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "phi3.5-moe-42b-a6.6b": "phi35_moe_42b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
+    "tinyllama-1.1b": "tinyllama_1_1b",
+    "stablelm-12b": "stablelm_12b",
+    "codeqwen1.5-7b": "codeqwen15_7b",
+    "deepseek-coder-33b": "deepseek_coder_33b",
+    "mamba2-130m": "mamba2_130m",
+    "qwen2-vl-7b": "qwen2_vl_7b",
+    "whisper-large-v3": "whisper_large_v3",
+}
+
+#: architectures of the JAX package not ported yet, with what they wait for
+_NOT_PORTED: Dict[str, str] = {
+    "recurrentgemma_9b": "RG-LRU blocks and windowed attention",
+    "phi35_moe_42b": "the MoE family",
+    "deepseek_v2_236b": "MLA attention and the MoE family",
+    "stablelm_12b": "its configuration module copied (the dense model is ported)",
+    "codeqwen15_7b": "its configuration module copied (the dense model is ported)",
+    "deepseek_coder_33b": "its configuration module copied (the dense model is ported)",
+    "mamba2_130m": "the Mamba2 SSD family",
+    "qwen2_vl_7b": "M-RoPE and the vision frontend",
+    "whisper_large_v3": "the encoder and cross-attention",
+}
+
+
+def _module(name: str):
+    mod_name = ALIASES.get(name, name).replace("-", "_").replace(".", "_")
+    if mod_name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"{name!r} is not ported to repro_torch yet: it needs "
+            f"{_NOT_PORTED[mod_name]} (ROADMAP.md §1, item 10)")
+    if mod_name not in ARCH_IDS:
+        raise KeyError(f"unknown architecture {name!r}")
+    return importlib.import_module(f"repro_torch.configs.{mod_name}")
+
+
+def get_config(name: str) -> ModelConfig:
+    """The published configuration of ``name``."""
+    return _module(name).CONFIG
+
+
+def get_reduced(name: str) -> ModelConfig:
+    """A small same-family configuration of ``name`` for CPU tests."""
+    return _module(name).reduced()

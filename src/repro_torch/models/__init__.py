@@ -1,0 +1,11 @@
+"""The model, ported from ``repro.models``: the dense family (GQA decoder
+with SwiGLU), in PyTorch."""
+
+from repro_torch.models.config import ModelConfig, Segment  # noqa: F401
+from repro_torch.models.model import (  # noqa: F401
+    Model,
+    ParamTree,
+    forward,
+    init_params,
+    lm_loss,
+)

@@ -1,0 +1,130 @@
+"""Shared neural building blocks, the port of ``repro.models.layers``.
+
+Parameters are nested dicts of tensors in the JAX package's layout: a
+dense weight is ``(in, out)`` and is applied as ``x @ w`` (not
+``nn.Linear``'s transpose), so checkpoint keys, shapes and bytes are the
+reference's. Every ``*_init`` draws from an explicit ``torch.Generator``
+(``None`` on the ``meta`` device, where nothing is drawn) and takes a
+leading ``lead`` shape for leaves stacked over layers. The numerics
+mirror the reference: norms, RoPE, softmax and the loss in float32, the
+matrix products in the parameters' dtype.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+__all__ = ["apply_rope", "dense_init", "embed_apply", "embed_init",
+           "ffn_apply", "ffn_init", "rmsnorm", "rmsnorm_init", "rope_angles",
+           "softmax_xent", "unembed_apply"]
+
+
+def _randn(gen: Optional[torch.Generator], shape, device) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, dtype=torch.float32,
+                       device=device)
+
+
+def dense_init(gen, in_dim: int, out_dim: int, dtype, *, device,
+               scale: Optional[float] = None, lead=()) -> torch.Tensor:
+    """``(*lead, in_dim, out_dim)`` normal times ``1/sqrt(in_dim)``."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(in_dim)
+    return (_randn(gen, (*lead, in_dim, out_dim), device) * scale).to(dtype)
+
+
+# ------------------------------------------------------------------ RMSNorm
+
+def rmsnorm_init(d: int, dtype, *, device, lead=()) -> torch.Tensor:
+    return torch.ones((*lead, d), dtype=dtype, device=device)
+
+
+def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
+            eps: float = 1e-6) -> torch.Tensor:
+    """RMSNorm in float32, the scale upcast, the result in ``x``'s dtype."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps) * scale.float()).to(dt)
+
+
+# --------------------------------------------------------------------- RoPE
+
+def rope_angles(positions: torch.Tensor, dim: int,
+                theta: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions (...,) int → cos/sin (..., dim/2) in float32."""
+    half = dim // 2
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=positions.device)
+                      * (math.log(theta) / half))
+    ang = positions.float()[..., None] * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x (..., H, hd) rotated by halves (the first half against the
+    second, not interleaved pairs); cos/sin broadcast (..., hd/2)."""
+    dt = x.dtype
+    x = x.float()
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    cos = cos[..., None, :]   # broadcast over heads
+    sin = sin[..., None, :]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos],
+                     dim=-1).to(dt)
+
+
+# ------------------------------------------------------------------- SwiGLU
+
+def ffn_init(gen, d: int, f: int, dtype, kind: str = "swiglu", *, device,
+             lead=()) -> dict:
+    if kind == "gelu":
+        return {"up": dense_init(gen, d, f, dtype, device=device, lead=lead),
+                "down": dense_init(gen, f, d, dtype, device=device,
+                                   lead=lead)}
+    return {
+        "gate": dense_init(gen, d, f, dtype, device=device, lead=lead),
+        "up": dense_init(gen, d, f, dtype, device=device, lead=lead),
+        "down": dense_init(gen, f, d, dtype, device=device, lead=lead),
+    }
+
+
+def ffn_apply(p, x: torch.Tensor) -> torch.Tensor:
+    """SwiGLU (``silu(x @ gate) * (x @ up)``) or, without a gate, the tanh
+    GELU that ``jax.nn.gelu`` defaults to; then ``@ down``."""
+    if "gate" in p:
+        h = F.silu(x @ p["gate"]) * (x @ p["up"])
+    else:
+        h = F.gelu(x @ p["up"], approximate="tanh")
+    return h @ p["down"]
+
+
+# ---------------------------------------------------------------- embedding
+
+def embed_init(gen, vocab: int, d: int, dtype, *, device) -> torch.Tensor:
+    return (_randn(gen, (vocab, d), device) * 0.02).to(dtype)
+
+
+def embed_apply(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return F.embedding(tokens.long(), table)
+
+
+def unembed_apply(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    return x @ table.T
+
+
+# ------------------------------------------------------------------- loss
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean masked token cross-entropy in float32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

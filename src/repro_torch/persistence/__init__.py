@@ -5,6 +5,8 @@
   committed through a Zero log; device scans through the CUDA kernels.
 - :mod:`repro_torch.persistence.wal`        — step-granular training WAL
   (Zero logging: one durability barrier per step).
+- :mod:`repro_torch.persistence.flusher`    — ``AsyncFlusher``: saves on
+  worker threads, overlapped with training.
 - :mod:`repro_torch.persistence.state`      — flat state between the JAX
   package's numpy arrays and the port's tensors.
 
@@ -18,5 +20,6 @@ from repro_torch.persistence.checkpoint import (  # noqa: F401
     RestoreReport,
     SaveReport,
 )
+from repro_torch.persistence.flusher import AsyncFlusher  # noqa: F401
 from repro_torch.persistence.state import from_numpy, to_numpy  # noqa: F401
 from repro_torch.persistence.wal import StepRecord, TrainWAL  # noqa: F401

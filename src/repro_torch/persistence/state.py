@@ -7,17 +7,25 @@ across as bytes, so no value is rounded, and the manifest names dtypes
 the way numpy does (``"bfloat16"``, ``"float32"``) in both packages, so a
 checkpoint written by one restores under the other. Key names stay the
 JAX package's (``p/decoder/seg0/b0/attn/wq``, …).
+
+Nested state (model parameters, optimizer state) flattens to those keys
+in the JAX package's leaf order — dict keys sorted at every level, as
+``jax.tree_util`` flattens a dict — so ``flatten_state`` gives the same
+key sequence as ``repro.launch.train.flatten_state``, and
+:func:`trainer_state` turns the JAX trainer's flat numpy checkpoint state
+into the port's parameter tree and optimizer state.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
-__all__ = ["TINYLLAMA_1_1B_PARAMS", "dtype_name", "from_numpy", "init_state",
-           "to_numpy", "torch_dtype"]
+__all__ = ["TINYLLAMA_1_1B_PARAMS", "dtype_name", "flatten_state",
+           "from_numpy", "init_state", "to_numpy", "torch_dtype",
+           "trainer_state", "unflatten_state"]
 
 _NAMES: Dict[torch.dtype, str] = {
     torch.bool: "bool", torch.uint8: "uint8", torch.int8: "int8",
@@ -71,10 +79,10 @@ def from_numpy(flat: Dict[str, np.ndarray],
     unchanged (bf16 crosses as raw 16-bit words)."""
     out = {}
     for name, arr in flat.items():
-        a = np.ascontiguousarray(arr)
+        a = np.array(arr, order="C", copy=True)   # writable, owned
         dt = torch_dtype(a.dtype.name)
         raw = torch.from_numpy(a.reshape(-1).view(np.uint8))
-        out[name] = raw.view(dt).reshape(a.shape).to(device, copy=True)
+        out[name] = raw.view(dt).reshape(a.shape).to(device)
     return out
 
 
@@ -112,3 +120,55 @@ def init_state(table: Dict[str, Tuple[Tuple[int, ...], str]], *, seed: int,
         x = torch.randn(shape, generator=gen, device=dev, dtype=torch.float32)
         out["p/" + name] = x.mul_(0.02).to(torch_dtype(dn))
     return out
+
+
+def _is_node(x) -> bool:
+    return isinstance(x, Mapping) or (hasattr(x, "keys")
+                                      and hasattr(x, "__getitem__")
+                                      and not isinstance(x, torch.Tensor))
+
+
+def flatten_state(tree, prefix: str = "") -> Dict[str, Any]:
+    """``{"a/b/c": leaf}`` of a nested dict (or a module tree that indexes
+    like one), keys sorted at every level: the JAX package's leaf order.
+    Leaves are returned as they are (no copy)."""
+    out: Dict[str, Any] = {}
+    for k in sorted(tree.keys()):
+        v = tree[k]
+        key = f"{prefix}{k}"
+        if _is_node(v):
+            out.update(flatten_state(v, key + "/"))
+        else:
+            out[key] = v
+    return out
+
+
+def unflatten_state(flat: Mapping[str, Any]) -> Dict[str, Any]:
+    """Inverse of :func:`flatten_state`: ``"a/b/c"`` keys → nested dicts."""
+    out: Dict[str, Any] = {}
+    for key, leaf in flat.items():
+        node = out
+        *path, last = key.split("/")
+        for part in path:
+            node = node.setdefault(part, {})
+        node[last] = leaf
+    return out
+
+
+def trainer_state(flat: Mapping[str, np.ndarray], device="cuda"
+                  ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """The JAX trainer's flat numpy state (``p/…`` parameters, ``o/…``
+    optimizer leaves, bf16 as ``ml_dtypes``) → ``(params, opt_state)``,
+    nested dicts of tensors on ``device`` that the port's model and
+    optimizer take. Leaves cross as bytes (:func:`from_numpy`); a key
+    with another prefix raises."""
+    params, opt = {}, {}
+    for k, v in from_numpy(dict(flat), device=device).items():
+        head, _, rest = k.partition("/")
+        if head == "p":
+            params[rest] = v
+        elif head == "o":
+            opt[rest] = v
+        else:
+            raise KeyError(f"state leaf {k!r} is neither p/… nor o/…")
+    return unflatten_state(params), unflatten_state(opt)

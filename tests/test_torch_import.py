@@ -21,6 +21,16 @@ def test_persistence_imports_with_jax_and_repro_blocked():
         import repro_torch.kernels.delta_pack
         import repro_torch.kernels.flush_scan
         from repro_torch.kernels import apply_delta, flush_scan, pack_delta, pack_dirty
+        import repro_torch.models
+        import repro_torch.configs
+        import repro_torch.optim
+        import repro_torch.data
+        import repro_torch.launch.steps
+        import repro_torch.launch.train
+        import repro_torch.persistence.flusher
+        from repro_torch.configs import get_config
+        from repro_torch.models import init_params
+        init_params(get_config("tinyllama-1.1b"), device="meta")
         loaded = [m for m, mod in sys.modules.items() if mod is not None
                   and (m == "jax" or m.startswith(("jax.", "repro.")))]
         assert not loaded, loaded
