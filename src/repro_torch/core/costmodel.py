@@ -36,7 +36,7 @@ from repro_torch.core.pmem import PMemStats
 from repro_torch.core.ssd import SSDStats
 
 __all__ = ["PMemCostModel", "DRAMCostModel", "SSDCostModel",
-           "COST_MODEL", "SSD_COST_MODEL"]
+           "COST_MODEL", "SSD_COST_MODEL", "measure_copy_gbps"]
 
 GiB = float(1 << 30)
 
@@ -537,3 +537,35 @@ class PMemCostModel:
 #: prices scans with from its caller.
 COST_MODEL = PMemCostModel(hbm_read_bw_gbps=math.nan)
 SSD_COST_MODEL = SSDCostModel()
+
+
+def measure_copy_gbps(device, nbytes: int = 1 << 28) -> float:
+    """Bytes read plus written by a device copy of ``nbytes`` over its
+    time (the mean of 10 copies after one), in GB/s: the rate to
+    give :class:`PMemCostModel` as ``hbm_read_bw_gbps``. Timed between
+    CUDA events on a card, on the host's clock otherwise."""
+    import time
+
+    import torch
+
+    reps = 10
+    device = torch.device(device)
+    x = torch.ones(nbytes, dtype=torch.uint8, device=device)
+    y = torch.empty_like(x)
+    y.copy_(x)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            y.copy_(x)
+        end.record()
+        torch.cuda.synchronize(device)
+        seconds = start.elapsed_time(end) * 1e-3 / reps
+    else:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            y.copy_(x)
+        seconds = (time.perf_counter() - t0) / reps
+    return 2 * nbytes / seconds / 1e9

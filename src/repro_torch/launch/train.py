@@ -31,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config, get_reduced
-from repro_torch.core.costmodel import PMemCostModel
+from repro_torch.core.costmodel import PMemCostModel, measure_copy_gbps
 from repro_torch.data import SyntheticPipeline
 from repro_torch.launch.steps import build_train_step
 from repro_torch.models import Model, init_params
@@ -47,7 +47,7 @@ from repro_torch.persistence.state import flatten_state, unflatten_state
 from repro_torch.pool import Pool
 
 __all__ = ["Trainer", "TrainerConfig", "flatten_state", "main",
-           "measure_copy_gbps", "unflatten_like"]
+           "unflatten_like"]
 
 
 def unflatten_like(template, flat: Mapping[str, torch.Tensor]):
@@ -225,32 +225,6 @@ class Trainer:
             "wal_barriers_per_step": self.wal.barriers_per_step(),
             "ckpt_reports": [dataclasses.asdict(r) for r in reports][-3:],
         }
-
-
-def measure_copy_gbps(device, nbytes: int = 1 << 28) -> float:
-    """Bytes read plus written by a device copy of ``nbytes`` over its
-    time (the mean of 5 copies after one), in GB/s: the read rate the
-    checkpoint's cost model prices scans with."""
-    device = torch.device(device)
-    x = torch.ones(nbytes, dtype=torch.uint8, device=device)
-    y = torch.empty_like(x)
-    y.copy_(x)
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(5):
-            y.copy_(x)
-        end.record()
-        torch.cuda.synchronize(device)
-        seconds = start.elapsed_time(end) * 1e-3 / 5
-    else:
-        t0 = time.perf_counter()
-        for _ in range(5):
-            y.copy_(x)
-        seconds = (time.perf_counter() - t0) / 5
-    return 2 * nbytes / seconds / 1e9
 
 
 def main() -> None:

@@ -1,30 +1,16 @@
 """Asynchronous checkpoint flushing, overlapped with training: the port
-of ``repro.persistence.flusher``.
+of ``repro.persistence.flusher`` as far as the trainer uses it.
 
 Guideline G5 ("performance-critical code should prefer DRAM … buffer writes
 in a DRAM cache") becomes: the training loop *stages* its state (a device
-copy of every leaf) and returns to compute immediately; a
-bounded background pool (guideline G4: over-saturating the durable tier
-degrades throughput, so writer concurrency is capped) runs the actual
-CoW/µLog flushing off the critical path.
+copy of every leaf) and returns to compute immediately; one background
+worker runs the actual CoW/µLog flushing off the critical path, with at
+most ``MAX_PENDING`` staged saves in flight (guideline G4: writer
+concurrency is capped).
 
-Lane model (repro_torch.io engine): the flusher runs **one worker lane per
-checkpoint shard**. A single manager keeps the original contract — saves
-serialized in submission order. A list of managers (one per shard of the
-host's state) flushes the shards concurrently, which is exactly the
-paper's multi-threaded page-flush setting (Fig. 5(b)): each shard's
-:class:`CheckpointManager` batches its own pages through a
-:class:`~repro_torch.io.FlushQueue` epoch, and the per-shard worker count is
-the engine's active-lane count.
-
-Ordering contract: saves for a given shard are serialized in submission
-order (a single worker per shard region); ``wait()`` drains everything —
-the train loop calls it before intentionally stopping, and the WAL makes
-any un-flushed tail recoverable anyway.
-
-The flusher owns no layout: each :class:`CheckpointManager` manages its
-shard through its own :class:`repro_torch.pool.Pool` (manifest + pages regions),
-so the worker threads only ever call ``manager.save``.
+Ordering contract: saves are serialized in submission order; ``wait()``
+drains them — the train loop calls it before intentionally stopping, and
+the WAL makes any un-flushed tail recoverable anyway.
 
 Where the reference stages to host memory, the port stages a clone on the
 device the state lies on: the port's manager scans leaves where they lie
@@ -32,136 +18,54 @@ and refuses a leaf on another device than its own, and the clone is still
 a real copy, so the loop may update the live tensors in place right after
 ``submit``. A worker's error is kept and raised again by :meth:`wait`
 and :meth:`close`.
+
+The reference's sharded lanes (a list of managers, ``submit_all``,
+``restore_all``) and its ``sockets``, ``cache_frames``, ``cache_admit_k``
+and ``kernel_impl`` propagation are not ported: no caller of the port
+uses them.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Any, Dict, List, Optional, Sequence, Union
+from typing import Dict, List
 
 import torch
 
-from repro_torch.persistence.checkpoint import (
-    CheckpointConfig,
-    CheckpointManager,
-    SaveReport,
-)
+from repro_torch.persistence.checkpoint import CheckpointManager, SaveReport
 
 __all__ = ["AsyncFlusher"]
 
+#: staged saves in flight before ``submit`` blocks (each is a device copy
+#: of the whole state)
+MAX_PENDING = 2
+
 
 class AsyncFlusher:
-    """Background flusher: one worker lane per checkpoint shard."""
+    """Background flusher: one worker thread saving through one manager."""
 
-    def __init__(self,
-                 managers: Union[CheckpointManager, Sequence[CheckpointManager]],
-                 *, max_pending: int = 2,
-                 sockets: Optional[int] = None,
-                 cache_frames: Optional[int] = None,
-                 cache_admit_k: Optional[int] = None,
-                 kernel_impl: Optional[str] = None) -> None:
-        """``sockets`` (when > 1) interleaves the shards' home sockets
-        round-robin across the host's NUMA sockets, so each shard's
-        worker lane flushes near-socket instead of funneling every
-        shard's pages through socket 0. Only shards that have not yet
-        built their pool (first save pending) and did not pin a socket
-        themselves (``CheckpointConfig.socket``) are moved; a shard
-        config still at the single-socket default also has the topology
-        propagated into it (its pool is created ``sockets``-wide —
-        without that the home assignment would clamp back to 0).
-
-        ``cache_frames`` / ``cache_admit_k`` likewise propagate a
-        host-level DRAM budget into every shard config still at its
-        default: the flusher's aggregate staging DRAM is
-        ``lanes × cache_frames × page_size``, bounded regardless of the
-        state size — per-shard snapshot frames are the shard pool's
-        :class:`~repro_torch.cache.BufferManager` (``pool.cache``), not an
-        unbounded host-RAM mirror. Shards whose pools are already built
-        or whose configs pin their own values keep them.
-
-        ``kernel_impl`` propagates a scan dispatch (e.g. ``"fused"`` or
-        ``"staged"``) into every shard config still at ``"auto"``, and
-        it governs BOTH directions: each worker lane's saves run the
-        one-pass ``flush_pack`` kernel (or the staged A/B chain), and
-        each shard's ``restore``/``adopt`` runs the one-pass
-        ``apply_unpack`` verify+assemble (or the staged
-        verify-then-copy loop) — see ``CheckpointConfig.kernel_impl``."""
-        if isinstance(managers, CheckpointManager):
-            managers = [managers]
-        self.managers: List[CheckpointManager] = list(managers)
-        if not self.managers:
-            raise ValueError("AsyncFlusher needs at least one manager")
-        import dataclasses
-        if sockets is not None and sockets > 1:
-            for i, mgr in enumerate(self.managers):
-                if mgr.pool is not None or mgr.cfg.socket is not None:
-                    continue
-                if mgr.cfg.sockets == 1:
-                    mgr.cfg = dataclasses.replace(mgr.cfg,
-                                                  sockets=int(sockets))
-                mgr.home_socket = i % mgr.cfg.sockets
-        if cache_frames is not None or cache_admit_k is not None:
-            for mgr in self.managers:
-                if mgr.pool is not None:
-                    continue
-                kw = {}
-                if cache_frames is not None and mgr.cfg.cache_frames is None:
-                    kw["cache_frames"] = int(cache_frames)
-                if cache_admit_k is not None \
-                        and mgr.cfg.cache_admit_k == CheckpointConfig.cache_admit_k:
-                    kw["cache_admit_k"] = int(cache_admit_k)
-                if kw:
-                    mgr.cfg = dataclasses.replace(mgr.cfg, **kw)
-        if kernel_impl is not None:
-            for mgr in self.managers:
-                if mgr.pool is None and mgr.cfg.kernel_impl == "auto":
-                    mgr.cfg = dataclasses.replace(mgr.cfg,
-                                                  kernel_impl=str(kernel_impl))
-        #: first shard's manager — kept for the single-shard call sites
-        self.manager = self.managers[0]
-        self._queues: List["queue.Queue"] = [
-            queue.Queue(maxsize=max_pending) for _ in self.managers
-        ]
-        self._reports: List[List[SaveReport]] = [[] for _ in self.managers]
+    def __init__(self, manager: CheckpointManager) -> None:
+        self.manager = manager
+        self._queue: "queue.Queue" = queue.Queue(maxsize=MAX_PENDING)
+        self.reports: List[SaveReport] = []
         self.errors: List[BaseException] = []
-        self._workers = [
-            threading.Thread(target=self._run, args=(i,), daemon=True)
-            for i in range(len(self.managers))
-        ]
-        for w in self._workers:
-            w.start()
+        self._worker = threading.Thread(target=self._run, daemon=True)
+        self._worker.start()
 
-    @property
-    def lanes(self) -> int:
-        return len(self.managers)
-
-    @property
-    def reports(self) -> List[SaveReport]:
-        """All completed saves: submission order within a shard; across
-        shards, ordered by (step, shard)."""
-        if len(self._reports) == 1:
-            return list(self._reports[0])
-        merged = [
-            (r.step, shard, r)
-            for shard, reps in enumerate(self._reports) for r in reps
-        ]
-        return [r for _, _, r in sorted(merged, key=lambda t: (t[0], t[1]))]
-
-    def _run(self, lane: int) -> None:
-        q = self._queues[lane]
+    def _run(self) -> None:
         while True:
-            item = q.get()
+            item = self._queue.get()
             if item is None:
-                q.task_done()
+                self._queue.task_done()
                 return
             step, state = item
             try:
-                self._reports[lane].append(self.managers[lane].save(step, state))
+                self.reports.append(self.manager.save(step, state))
             except BaseException as e:  # surfaced on wait()
                 self.errors.append(e)
             finally:
-                q.task_done()
+                self._queue.task_done()
 
     @staticmethod
     def stage(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -170,55 +74,22 @@ class AsyncFlusher:
         tensors in place immediately after submit()."""
         return {k: v.detach().clone() for k, v in state.items()}
 
-    def submit(self, step: int, state: Dict[str, Any], *, shard: int = 0) -> None:
-        """Stage and enqueue one shard's save; blocks only if that shard
-        already has ``max_pending`` saves in flight (back-pressure instead
-        of unbounded host RAM)."""
-        self._queues[shard].put((step, self.stage(state)))
-
-    def submit_all(self, step: int, states: Sequence[Dict[str, Any]]) -> None:
-        """Stage and enqueue one save per shard (lane-parallel flush)."""
-        if len(states) != len(self.managers):
-            raise ValueError(
-                f"{len(states)} shard states for {len(self.managers)} managers")
-        for shard, state in enumerate(states):
-            self.submit(step, state, shard=shard)
+    def submit(self, step: int, state: Dict[str, torch.Tensor]) -> None:
+        """Stage and enqueue one save; blocks only if ``MAX_PENDING``
+        saves are already in flight (back-pressure instead of unbounded
+        device memory)."""
+        self._queue.put((step, self.stage(state)))
 
     def wait(self) -> List[SaveReport]:
-        for q in self._queues:
-            q.join()
+        self._queue.join()
         if self.errors:
             raise self.errors[0]
-        return self.reports
-
-    def restore_all(self, *, verify: bool = True):
-        """Restore every shard (drains in-flight saves first) and return
-        ``(step, states)`` — the common committed step and one state
-        dict per shard. Each shard restores through its own manager, so
-        the per-shard ``kernel_impl`` (fused ``apply_unpack`` vs staged)
-        and restore accounting (``manager.last_restore``) apply
-        shard-by-shard. Raises if the shards disagree on the newest
-        committed step — a torn multi-shard save (submit_all + wait
-        makes this impossible in normal operation)."""
-        self.wait()
-        steps, states = [], []
-        for mgr in self.managers:
-            step, state = mgr.restore(verify=verify)
-            steps.append(step)
-            states.append(state)
-        if len(set(steps)) != 1:
-            raise RuntimeError(
-                f"shards restored different steps {steps}: torn "
-                f"multi-shard checkpoint")
-        return steps[0], states
+        return list(self.reports)
 
     def close(self) -> List[SaveReport]:
-        for q in self._queues:
-            q.put(None)
-        for q in self._queues:
-            q.join()
-        for w in self._workers:
-            w.join(timeout=60)
+        self._queue.put(None)
+        self._queue.join()
+        self._worker.join(timeout=60)
         if self.errors:
             raise self.errors[0]
-        return self.reports
+        return list(self.reports)

@@ -263,18 +263,12 @@ def test_flusher_reraises_a_worker_error(tmp_path):
         f.close()
 
 
-def test_flusher_sets_up_shards_that_have_no_pool_yet(tmp_path):
-    ms = [cpu_manager(tmp_path / f"s{i}.pmem") for i in range(2)]
-    f = AsyncFlusher(ms, sockets=2, cache_frames=8, kernel_impl="staged")
-    assert f.lanes == 2
-    assert [m.home_socket for m in ms] == [0, 1]
-    assert all(m.cfg.sockets == 2 and m.cfg.cache_frames == 8
-               and m.cfg.kernel_impl == "staged" for m in ms)
-    f.submit_all(1, [small_state(1), small_state(2)])
-    assert [(r.step, r.pages_cow > 0) for r in f.wait()] == [(1, True)] * 2
-    step, states = f.restore_all()
-    assert step == 1
-    assert int(states[1]["o/count"]) == 2
-    with pytest.raises(ValueError, match="shard states"):
-        f.submit_all(2, [small_state(3)])
-    f.close()
+def test_flusher_close_drains_and_stops_its_worker(tmp_path):
+    m = cpu_manager(tmp_path / "c.pmem")
+    f = AsyncFlusher(m)
+    for step in (1, 2, 3, 4):    # more than MAX_PENDING: submit blocks
+        f.submit(step, small_state(step))
+    assert [r.step for r in f.close()] == [1, 2, 3, 4]
+    assert not f._worker.is_alive()
+    step, got = m.restore()
+    assert step == 4 and int(got["o/count"]) == 4
