@@ -4,6 +4,7 @@
 Run from the repository root:
 
     python3 chip_smoke.py [--seed 0] [--layers 22] [--train-layers 2]
+                          [--serve-layers 22]
 
 Phases (any failure exits non-zero):
 
@@ -48,10 +49,20 @@ Phases (any failure exits non-zero):
    trains steps 0-2, saves step 2 and crashes at step 3; run 2 restores
    step 2 tensor for tensor, repeats step 2's loss, and saves step 4
    through ``AsyncFlusher``; a fresh restore returns that save tensor for
-   tensor; the card's loss on 128 tokens is held against the CPU's. Its
-   own counts must equal the prediction from its 37 leaves:
-   popcnt_checksum 37, flush_pack 111, apply_unpack 74, the rest 0. It
-   prints each step's, save's and restore's wall time.
+   tensor; on 128 tokens the card's logits and loss, its per-leaf
+   gradients (``remat=True``, as the train step takes them) and one AdamW
+   update fed the CPU's gradients are held against the CPU's. Its own
+   counts must equal the prediction from its 37 leaves: popcnt_checksum
+   37, flush_pack 111, apply_unpack 74, the rest 0. It prints each
+   step's, save's and restore's wall time.
+7. serve path — ``repro_torch.launch.serve.serve_batch`` on tinyllama-1.1b
+   at full width, ``--serve-layers`` deep (22, the whole model), batch 8,
+   prompts of 512 tokens, 128 generated: the tokens lie in the vocabulary;
+   the prompt and generated tokens stepped through ``decode_step`` from
+   fresh caches give the full forward's logits at every position; row
+   0's first 16 decode steps on the card give the CPU's logits and caches.
+   It prints tokens/s and the decode step's median. Its own counts: all
+   seven kernels 0 (serving touches no checkpoint kernel).
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
 card's name and power limit and one ``{"kernels": [...]}`` line, whose
@@ -66,6 +77,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -89,6 +101,23 @@ BIG_LEAF = "p/decoder/seg0/b0/ffn/up"
 MANIFEST = 64 << 20
 #: the device every phase runs on (a rehearsal on the CPU sets "cpu")
 DEV = "cuda"
+#: the serve path's batch, prompt length and generated tokens
+SERVE_BATCH, PROMPT, GEN = 8, 512, 128
+
+
+def serve_sizes(layers: int) -> str:
+    """What the serve path holds at ``layers`` of tinyllama-1.1b's depth."""
+    from repro_torch.persistence.state import TINYLLAMA_1_1B_PARAMS
+    n = 0
+    for k, (shape, _) in TINYLLAMA_1_1B_PARAMS.items():   # decoder: 22 deep
+        n += (math.prod(shape[1:]) * layers if k.startswith("decoder/")
+              else math.prod(shape))
+    cache = SERVE_BATCH * (PROMPT + GEN) * 4 * 64 * 2 * 2 * layers
+    return (f"tinyllama-1.1b at full width, {layers} of 22 layers: {n} "
+            f"parameters ({2 * n} B in bf16); batch {SERVE_BATCH} x prompt "
+            f"{PROMPT} + {GEN} generated; KV caches {cache} B "
+            f"({SERVE_BATCH} x {PROMPT + GEN} slots x 4 kv heads x 64 x k,v "
+            f"x 2 B x {layers} layers)")
 
 
 def fail(msg: str) -> None:
@@ -775,10 +804,10 @@ def trainer_path(seed: int, layers: int, rate_gbps: float, tmp: str, *,
     3. a fresh manager's restore (apply_unpack) gives back run 2's final
        state tensor for tensor;
     4. the card's logits and loss on batch 0's first row, first 128
-       tokens, against the port's CPU forward with the same parameters.
+       tokens, against the port's CPU forward with the same parameters;
+       then the gradients and one AdamW update (``backward_and_adamw``).
 
     Returns the number of checkpointed leaves."""
-    import math
     import statistics
     import torch
     from repro_torch.core.costmodel import PMemCostModel
@@ -926,10 +955,7 @@ def trainer_path(seed: int, layers: int, rate_gbps: float, tmp: str, *,
     card_logits = card_logits.cpu()
     rel = abs(card - cpu) / abs(cpu)
     err = float((card_logits.float() - cpu_logits.float()).abs().max())
-    top = float(cpu_logits.float().abs().max())
-    # 4 bf16 ulps at the largest logit, the bound tests/test_torch_model.py
-    # holds the port's logits to against JAX
-    lim = 4 * 2.0 ** (math.floor(math.log2(top)) - 7)
+    top, lim = four_ulps(cpu_logits)
     print(f"trainer: on batch 0's first row ({row['tokens'].shape[1]} "
           f"tokens), max |card - CPU| logit {err!r} (largest |logit| "
           f"{top!r}, limit 4 bf16 ulps = {lim!r}); loss card {card!r}, CPU "
@@ -938,6 +964,7 @@ def trainer_path(seed: int, layers: int, rate_gbps: float, tmp: str, *,
         fail("the card's logits disagree with the CPU's")
     if not rel <= 2e-2:
         fail("the card's loss disagrees with the CPU's")
+    backward_and_adamw(t2, cfg, row, host)
     # run 1's step 0 is the cold one (cuBLAS and allocator set-up)
     med = statistics.median(step_s[1:])
     print(f"trainer: train step wall s {json.dumps([round(x, 4) for x in step_s])}"
@@ -946,6 +973,239 @@ def trainer_path(seed: int, layers: int, rate_gbps: float, tmp: str, *,
           f"torch.cuda.synchronize())", flush=True)
     del t2
     return n_leaves
+
+
+def four_ulps(x) -> tuple:
+    """``(largest |x|, 4 bf16 ulps at it)``: the bound tests/test_torch_model.py
+    holds the port's logits to against JAX."""
+    top = float(x.float().abs().max())
+    return top, 4 * 2.0 ** (math.floor(math.log2(top)) - 7)
+
+
+def bf16_ulps(a, b):
+    """``|a - b|`` of two bf16 tensors in ulps of the larger magnitude of
+    each pair (0 where they are equal)."""
+    import torch
+    a, b = a.float(), b.float()
+    big = torch.maximum(a.abs(), b.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(big)) - 7)
+    return (a - b).abs() / ulp
+
+
+def backward_and_adamw(trainer, cfg, row, host) -> None:
+    """The card's backward pass and AdamW step against the CPU's, on
+    ``row`` at the trainer's width and depth: per-leaf gradients of
+    ``lm_loss(remat=True)`` (relative L2 <= 3e-2, the bound of
+    tests/test_torch_model.py); then ``adamw_update`` on both sides, both
+    fed the CPU's gradients at the trainer's count (where warmup_cosine is
+    above 0): moments within 1e-5 of each leaf's largest value, the new
+    bf16 parameters within 1 ulp."""
+    import torch
+    from repro_torch.models import lm_loss
+    from repro_torch.optim import AdamWConfig, adamw_update, warmup_cosine
+    from repro_torch.persistence.state import flatten_state, unflatten_state
+
+    def grads_on(params, batch):
+        leaves = {k: v.detach().clone().requires_grad_(True)
+                  for k, v in flatten_state(params).items()}
+        with torch.enable_grad():
+            loss, _ = lm_loss(unflatten_state(leaves), cfg, batch, remat=True)
+            g = torch.autograd.grad(loss, list(leaves.values()))
+        return dict(zip(leaves, g))
+
+    card = grads_on(trainer.params, {k: v.to(DEV) for k, v in row.items()})
+    cpu = grads_on(host, row)
+    rel = {k: float(torch.linalg.vector_norm(card[k].cpu().float() - g.float())
+                    / torch.linalg.vector_norm(g.float()).clamp_min(1e-30))
+           for k, g in cpu.items()}
+    worst = max(rel, key=rel.get)
+    print(f"trainer: gradients of lm_loss (remat) on the card against the "
+          f"CPU's, {len(rel)} leaves: worst relative L2 {rel[worst]!r} "
+          f"({worst}; limit 3e-2)", flush=True)
+    if not rel[worst] <= 3e-2:
+        fail("the card's gradients disagree with the CPU's")
+    del card
+
+    count = trainer.opt_state["count"]
+    lr_scale = warmup_cosine(count.cpu(), total=max(trainer.tc.steps, 100))
+    if not float(lr_scale) > 0:
+        fail(f"warmup_cosine({int(count)}) is 0: the update would not move")
+
+    def update_on(device):
+        params = unflatten_state({k: v.detach().to(device, copy=True)
+                                  for k, v in flatten_state(host).items()})
+        opt = unflatten_state({k: v.to(device, copy=True) for k, v in
+                               flatten_state(trainer.opt_state).items()})
+        grads = unflatten_state({k: g.to(device) for k, g in cpu.items()})
+        adamw_update(grads, opt, params, AdamWConfig(lr=trainer.tc.lr),
+                     lr_scale.to(device))
+        return ({k: v.cpu() for k, v in flatten_state(params).items()},
+                {k: v.cpu() for k, v in flatten_state(opt).items()})
+
+    p_card, o_card = update_on(DEV)
+    p_cpu, o_cpu = update_on("cpu")
+    moments = {k: float((o_card[k] - v).abs().max()
+                        / v.abs().max().clamp_min(1e-30))
+               for k, v in o_cpu.items() if k.startswith(("m/", "v/"))}
+    ulps = {k: float(bf16_ulps(p_card[k], v).max()) for k, v in p_cpu.items()}
+    wm, wp = max(moments, key=moments.get), max(ulps, key=ulps.get)
+    moved = sum(int((p_cpu[k] != v).sum()) for k, v in
+                flatten_state(host).items())
+    print(f"trainer: one AdamW update at count {int(count)} (lr scale "
+          f"{float(lr_scale)!r}) fed the CPU's gradients, card against CPU: "
+          f"worst moment {moments[wm]!r} of the leaf's largest value ({wm}; "
+          f"limit 1e-5), worst parameter {ulps[wp]!r} bf16 ulps ({wp}; limit "
+          f"1); {moved} parameters moved", flush=True)
+    if not moments[wm] <= 1e-5:
+        fail("the card's AdamW moments disagree with the CPU's")
+    if not ulps[wp] <= 1:
+        fail("the card's AdamW parameters disagree with the CPU's")
+    if not o_card["count"].item() == o_cpu["count"].item() == int(count) + 1:
+        fail("AdamW's count did not advance by one")
+
+
+# ------------------------------------------------------------------- serve
+
+def decode_profile(params, cfg, tok, caches, pos: int, median_s: float,
+                   steps: int = 5) -> None:
+    """``steps`` decode steps at ``pos`` under ``torch.profiler``: the
+    device activities (kernels, copies, fills) a step runs and their
+    summed time, beside the unprofiled median step; the rest of the step
+    is the device's idle share."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import decode_step
+    with torch.inference_mode(), profile(activities=[
+            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            decode_step(params, cfg, tok, caches, pos)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not dev:
+        print("serve: decode step device time: not measured (the profiler "
+              "recorded no device activity)", flush=True)
+        return
+    busy = sum(e.time_range.elapsed_us() for e in dev) / steps * 1e-6
+    top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
+    names = [(e.key[:48], round(e.self_device_time_total / steps, 1))
+             for e in top[:6]]
+    print(f"serve: decode step under torch.profiler ({steps} steps): "
+          f"{len(dev) / steps:.0f} device activities a step, device busy "
+          f"{busy:.6f} s a step, {busy / median_s:.1%} of the median step "
+          f"(idle {1 - busy / median_s:.1%}); most device us a step: "
+          f"{json.dumps(names)}", flush=True)
+
+
+def serve_path(seed: int, layers: int, *, batch: int = SERVE_BATCH,
+               prompt: int = PROMPT, gen: int = GEN,
+               cpu_steps: int = 16, reduced: bool = False) -> None:
+    """Serving through ``repro_torch.launch.serve`` on tinyllama-1.1b at
+    full width and ``layers`` deep (``reduced`` takes the small CPU test
+    configuration, for a rehearsal):
+
+    1. ``serve_batch``: ``batch`` prompts of ``prompt`` tokens from the
+       synthetic pipeline, ``gen`` greedy tokens, each in the vocabulary;
+    2. the prompt and the generated tokens stepped through ``decode_step``
+       from fresh caches (each step timed after ``torch.cuda.synchronize``)
+       against ``forward`` over the whole sequence: every position's
+       logits within 4 bf16 ulps of the largest;
+    3. row 0's first ``cpu_steps`` tokens through ``decode_step`` on the
+       card and on the CPU with the same parameters: the logits, and each
+       cache leaf's k and v, within 4 bf16 ulps of their largest value."""
+    import statistics
+    import torch
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.serve import serve_batch
+    from repro_torch.models import decode_step, forward, init_caches, init_params
+    from repro_torch.persistence.state import flatten_state, unflatten_state
+
+    cfg = get_reduced("tinyllama-1.1b") if reduced else \
+        get_config("tinyllama-1.1b")
+    cfg = dataclasses.replace(cfg, num_layers=layers)
+    params = init_params(cfg, seed, device=DEV)
+    prompts = torch.from_numpy(
+        synthetic_batch(cfg, batch, prompt, cursor=0)["tokens"]).to(DEV)
+
+    # 1. the entry point ---------------------------------------------------
+    toks, tps = serve_batch(cfg, params, prompts, gen)
+    if tuple(toks.shape) != (batch, gen) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab_size:
+        fail(f"serve_batch gave {tuple(toks.shape)} tokens in "
+             f"[{int(toks.min())}, {int(toks.max())}], vocabulary "
+             f"{cfg.vocab_size}")
+    print(f"serve: serve_batch {batch} x ({prompt} prompt + {gen} generated) "
+          f"tokens, {tps:.1f} tokens/s (B*(P+gen) over the wall time); row "
+          f"0 begins {toks[0, :8].tolist()}", flush=True)
+
+    # 2. decode (teacher-forced) against the full forward -------------------
+    seq = torch.cat([prompts, toks], dim=1)            # (B, P + gen)
+    n = seq.shape[1]
+    step_s = []
+    with torch.inference_mode():
+        full, _ = forward(params, cfg, {"tokens": seq})
+        caches = init_caches(cfg, batch, n, device=DEV)
+        dec = torch.empty_like(full)
+        for t in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, caches = decode_step(params, cfg, seq[:, t:t + 1], caches,
+                                         t)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            dec[:, t] = logits[:, 0]
+    top, lim = four_ulps(full)
+    err = float((dec.float() - full.float()).abs().max())
+    print(f"serve: decode_step over {n} positions x {batch} rows against "
+          f"forward over the whole sequence: max |decode - forward| logit "
+          f"{err!r} (largest |logit| {top!r}, limit 4 bf16 ulps = {lim!r})",
+          flush=True)
+    if not err <= lim:
+        fail("decode's logits disagree with the full forward's")
+    med = statistics.median(step_s[1:])
+    print(f"serve: decode step ({batch} rows, {n}-slot caches) wall s median "
+          f"{med:.6f} of {n - 1} after the first ({step_s[0]:.4f}), min "
+          f"{min(step_s):.6f}, max {max(step_s):.6f}; decode {batch / med:.1f} "
+          f"tokens/s (after torch.cuda.synchronize())", flush=True)
+    decode_profile(params, cfg, seq[:, -1:], caches, n - 1, med)
+    del full, dec, caches
+
+    # 3. the card against the CPU -------------------------------------------
+    row = seq[:1, :cpu_steps]
+    host = unflatten_state({k: v.cpu() for k, v in
+                            flatten_state(params).items()})
+    out = {}
+    with torch.inference_mode():
+        for name, p, dev in (("card", params, DEV), ("cpu", host, "cpu")):
+            c = init_caches(cfg, 1, cpu_steps, device=dev)
+            ls = []
+            for t in range(cpu_steps):
+                logits, c = decode_step(p, cfg, row[:, t:t + 1].to(dev), c, t)
+                ls.append(logits.cpu())
+            out[name] = (torch.cat(ls, dim=1),
+                         {k: v.cpu() for k, v in flatten_state(c).items()})
+    (cl, cc), (hl, hc) = out["card"], out["cpu"]
+    top, lim = four_ulps(hl)
+    err = float((cl.float() - hl.float()).abs().max())
+    worst = []
+    for k in hc:
+        if k.endswith("/pos"):
+            if not torch.equal(cc[k], hc[k]):
+                fail(f"the card's cache {k} differs from the CPU's")
+            continue
+        ctop, clim = four_ulps(hc[k])
+        cerr = float((cc[k].float() - hc[k].float()).abs().max())
+        worst.append((cerr / clim, k, cerr, ctop, clim))
+    ratio, k, cerr, ctop, clim = max(worst)
+    print(f"serve: row 0's first {cpu_steps} decode steps, card against CPU "
+          f"({layers} layers): max |card - CPU| logit {err!r} (largest "
+          f"{top!r}, limit {lim!r}); worst cache leaf {k}: {cerr!r} (largest "
+          f"{ctop!r}, limit 4 bf16 ulps = {clim!r})", flush=True)
+    if not err <= lim:
+        fail("the card's decode logits disagree with the CPU's")
+    if not ratio <= 1:
+        fail("the card's caches disagree with the CPU's")
 
 
 # --------------------------------------------------------------------- main
@@ -959,6 +1219,9 @@ def main() -> int:
     ap.add_argument("--train-layers", type=int, default=2,
                     help="decoder depth of the trainer path (its state, "
                          "AdamW moments included, is 2.2 GB at 2 layers)")
+    ap.add_argument("--serve-layers", type=int, default=22,
+                    help="decoder depth of the serve path (22 is the whole "
+                         "model)")
     args = ap.parse_args()
 
     import torch
@@ -999,7 +1262,8 @@ def main() -> int:
             "trainer path": "tinyllama-1.1b at full width, trained with "
                             "AdamW (37 leaves with the moments), batch 8 x "
                             "seq 512",
-            "trainer layers": f"{args.train_layers} of 22"}
+            "trainer layers": f"{args.train_layers} of 22",
+            "serve path": serve_sizes(args.serve_layers)}
     print("reduced: " + json.dumps(cuts), flush=True)
 
     # 2. kernels --------------------------------------------------------
@@ -1082,6 +1346,12 @@ def main() -> int:
     by_path = {"trainer": train_launches, "staged": staged_launches,
                "delta round trip": trip_launches}
     launches = {name: by_path[paths[name]][name] for name in wrappers}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    serve_launches, _ = counted(lambda: serve_path(args.seed,
+                                                   args.serve_layers))
+    print(f"serve path: {time.perf_counter() - t0:.1f} s", flush=True)
+    check_launches("serve path", serve_launches, (), tuple(wrappers))
 
     # report ------------------------------------------------------------
     replaces = {

@@ -1,7 +1,8 @@
 """Architecture registry of the port: ``get_config(name)`` / ``--arch <id>``.
 
 The port's copy of ``repro.configs``. Only the dense family is ported:
-``tinyllama-1.1b`` resolves; every other architecture of the JAX
+``tinyllama-1.1b``, ``stablelm-12b``, ``codeqwen1.5-7b`` and
+``deepseek-coder-33b`` resolve; every other architecture of the JAX
 package's registry raises ``NotImplementedError`` naming the ``ROADMAP.md``
 item that ports it, and is never mapped to another model.
 """
@@ -16,7 +17,8 @@ from repro_torch.models.config import ModelConfig
 __all__ = ["ALIASES", "ARCH_IDS", "get_config", "get_reduced"]
 
 #: the architectures this package can build
-ARCH_IDS: List[str] = ["tinyllama_1_1b"]
+ARCH_IDS: List[str] = ["tinyllama_1_1b", "stablelm_12b", "codeqwen15_7b",
+                       "deepseek_coder_33b"]
 
 #: assignment-sheet name → module id (the JAX package's table)
 ALIASES: Dict[str, str] = {
@@ -33,16 +35,14 @@ ALIASES: Dict[str, str] = {
 }
 
 #: architectures of the JAX package not ported yet, with what they wait for
+#: and the items of ROADMAP.md §1 that port it
 _NOT_PORTED: Dict[str, str] = {
-    "recurrentgemma_9b": "RG-LRU blocks and windowed attention",
-    "phi35_moe_42b": "the MoE family",
-    "deepseek_v2_236b": "MLA attention and the MoE family",
-    "stablelm_12b": "its configuration module copied (the dense model is ported)",
-    "codeqwen15_7b": "its configuration module copied (the dense model is ported)",
-    "deepseek_coder_33b": "its configuration module copied (the dense model is ported)",
-    "mamba2_130m": "the Mamba2 SSD family",
-    "qwen2_vl_7b": "M-RoPE and the vision frontend",
-    "whisper_large_v3": "the encoder and cross-attention",
+    "recurrentgemma_9b": "RG-LRU blocks and windowed attention (items 5, 4)",
+    "phi35_moe_42b": "the MoE family (item 5)",
+    "deepseek_v2_236b": "MLA attention and the MoE family (item 5)",
+    "mamba2_130m": "the Mamba2 SSD family (item 5)",
+    "qwen2_vl_7b": "M-RoPE and the vision frontend (item 5)",
+    "whisper_large_v3": "the encoder and cross-attention (items 5, 4)",
 }
 
 
@@ -51,7 +51,7 @@ def _module(name: str):
     if mod_name in _NOT_PORTED:
         raise NotImplementedError(
             f"{name!r} is not ported to repro_torch yet: it needs "
-            f"{_NOT_PORTED[mod_name]} (ROADMAP.md §1, item 10)")
+            f"{_NOT_PORTED[mod_name]} of ROADMAP.md §1")
     if mod_name not in ARCH_IDS:
         raise KeyError(f"unknown architecture {name!r}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")

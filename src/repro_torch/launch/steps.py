@@ -1,9 +1,13 @@
-"""The train step, the port of ``repro.launch.steps.build_train_step``.
+"""The train, prefill and serve steps, the port of
+``repro.launch.steps``.
 
-The step is eager PyTorch: autograd gives the gradients of ``lm_loss``,
-and AdamW updates the parameters and the optimizer state in place. The
-sharded wrappers of the reference (``shard_*``) belong to the
-distributed slice and are not ported yet.
+The steps are eager PyTorch. In the train step autograd gives the
+gradients of ``lm_loss``, and AdamW updates the parameters and the
+optimizer state in place. The prefill and serve steps run under
+``torch.inference_mode()``, so no decode step builds a graph; the serve
+step writes into the caches it is given. The sharded wrappers of the
+reference (``shard_*``) belong to the distributed slice and are not
+ported yet.
 """
 
 from __future__ import annotations
@@ -12,12 +16,12 @@ from typing import Any, Dict, Mapping, Tuple
 
 import torch
 
-from repro_torch.models import lm_loss
+from repro_torch.models import decode_step, forward, lm_loss
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamWConfig, adamw_update, warmup_cosine
 from repro_torch.persistence.state import flatten_state, unflatten_state
 
-__all__ = ["build_train_step"]
+__all__ = ["build_prefill_step", "build_serve_step", "build_train_step"]
 
 
 def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
@@ -49,3 +53,30 @@ def build_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig = AdamWConfig(),
         return params, opt_state, metrics
 
     return train_step
+
+
+def build_prefill_step(cfg: ModelConfig):
+    """``prefill_step(params, batch) -> logits (B, padded vocab)`` of the
+    last position of a full-sequence forward."""
+
+    @torch.inference_mode()
+    def prefill_step(params, batch: Mapping[str, torch.Tensor]
+                     ) -> torch.Tensor:
+        logits, _ = forward(params, cfg, batch)
+        return logits[:, -1]
+
+    return prefill_step
+
+
+def build_serve_step(cfg: ModelConfig):
+    """``serve_step(params, tokens (B, 1), caches, cache_pos) -> (logits
+    (B, padded vocab), caches)``: one decode step, the caches updated in
+    place and returned."""
+
+    @torch.inference_mode()
+    def serve_step(params, tokens: torch.Tensor, caches, cache_pos
+                   ) -> Tuple[torch.Tensor, Any]:
+        logits, caches = decode_step(params, cfg, tokens, caches, cache_pos)
+        return logits[:, 0], caches
+
+    return serve_step

@@ -5,7 +5,9 @@ from repro_torch.models.config import ModelConfig, Segment  # noqa: F401
 from repro_torch.models.model import (  # noqa: F401
     Model,
     ParamTree,
+    decode_step,
     forward,
+    init_caches,
     init_params,
     lm_loss,
 )

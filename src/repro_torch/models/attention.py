@@ -1,6 +1,7 @@
 """Grouped-query attention, the port of the GQA part of
-``repro.models.attention``: ``gqa_init`` and the full-sequence path of
-``gqa_apply`` (causal for the decoder, bidirectional when asked).
+``repro.models.attention``: ``gqa_init``, ``gqa_cache_init``, the
+full-sequence path of ``gqa_apply`` (causal for the decoder,
+bidirectional when asked) and its cached (decode) path without a window.
 
 Heads are grouped as the reference groups them: q is viewed as
 ``(B, S, KV, G, hd)``, so q-head ``h = kv * G + g`` shares k/v head
@@ -9,9 +10,17 @@ masked with ``-1e30``, softmaxed in float32 and cast back to the values'
 dtype before the product with v, as ``repro.models.attention._attend``
 does.
 
+The cached path writes the new keys and values into the cache it is
+given, in place, and returns that same dict: the reference returns new
+arrays, but a copy of the whole cache per token is what a preallocated
+PyTorch cache avoids. It mirrors ``jax.lax.dynamic_update_slice``: the
+write starts at ``cache_pos`` clamped to ``[0, T - S]``, while RoPE and
+the mask (``arange(T) <= cache_pos``) take ``cache_pos`` as given.
+
 Not ported yet, and refused rather than computed another way: sequences
 longer than ``FLASH_THRESHOLD`` (the reference's ``_attend_flash``),
-sliding-window, cross and cached (decode) attention, and MLA.
+sliding-window attention (with or without a cache), cross attention,
+M-RoPE and MLA.
 """
 
 from __future__ import annotations
@@ -23,7 +32,7 @@ import torch
 
 from repro_torch.models.layers import apply_rope, dense_init, rope_angles
 
-__all__ = ["FLASH_THRESHOLD", "gqa_apply", "gqa_init"]
+__all__ = ["FLASH_THRESHOLD", "gqa_apply", "gqa_cache_init", "gqa_init"]
 
 #: the reference switches to its chunked online-softmax path above this
 #: length; the port refuses such sequences until that path is ported
@@ -71,21 +80,25 @@ def gqa_apply(
     cross: bool = False,
     kv_input: Optional[torch.Tensor] = None,
     cache: Optional[Dict[str, torch.Tensor]] = None,
-    cache_pos: Optional[torch.Tensor] = None,
+    cache_pos=None,                      # int or 0-d int tensor
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Full-sequence attention of ``x`` (B,S,D): ``(out @ wo, {"k", "v"})``."""
+    """Attention of ``x`` (B,S,D): ``(out @ wo, cache)``. Without a cache,
+    over the full sequence, and ``cache`` is ``{"k", "v"}`` of ``x``; with
+    ``cache`` and ``cache_pos``, against the cache after writing ``x``'s
+    keys and values into it, and ``cache`` is the dict given, updated."""
     if cross or kv_input is not None:
         raise NotImplementedError("cross attention is not ported yet")
-    if cache is not None or cache_pos is not None:
-        raise NotImplementedError("cached (decode) attention is not ported "
-                                  "yet")
     if window:
         raise NotImplementedError("sliding-window attention is not ported "
                                   "yet")
     if cfg.mrope_sections:
         raise NotImplementedError("M-RoPE is not ported yet")
+    if (cache is None) != (cache_pos is None):
+        raise NotImplementedError("attention with only one of cache and "
+                                  "cache_pos is not ported")
+    cached = cache is not None
     B, S, D = x.shape
-    if S > FLASH_THRESHOLD:
+    if S > FLASH_THRESHOLD and not cached:
         raise NotImplementedError(
             f"sequence length {S} > {FLASH_THRESHOLD}: the reference's "
             f"chunked (flash) attention path is not ported yet")
@@ -97,10 +110,40 @@ def gqa_apply(
     q = apply_rope(_split_heads(x @ p["wq"], H), cos, sin)
     k = apply_rope(_split_heads(x @ p["wk"], KV), cos, sin)
     v = _split_heads(x @ p["wv"], KV)
+    qg = q.reshape(B, S, KV, G, hd)
+    if cached:
+        # decode: write the S new slots, attend to every slot <= cache_pos
+        T = cache["k"].shape[1]
+        if S > T:
+            raise ValueError(f"{S} tokens do not fit a cache of {T} slots")
+        # an int stays on the host and a tensor on its device: no sync
+        start = (torch.clamp(cache_pos, 0, T - S)
+                 if torch.is_tensor(cache_pos)
+                 else min(max(int(cache_pos), 0), T - S))
+        ar = torch.arange(T, device=x.device)
+        slots = ar[:S] + start
+        cache["k"].index_copy_(1, slots, k)
+        cache["v"].index_copy_(1, slots, v)
+        out = _attend(qg, cache["k"], cache["v"], ar <= cache_pos, scale)
+        return out.reshape(B, S, H * hd) @ p["wo"], cache
     if causal:
         ar = torch.arange(S, device=x.device)
         mask = ar[None, :] <= ar[:, None]
     else:
         mask = torch.ones((S, S), dtype=torch.bool, device=x.device)
-    out = _attend(q.reshape(B, S, KV, G, hd), k, v, mask, scale)
+    out = _attend(qg, k, v, mask, scale)
     return out.reshape(B, S, H * hd) @ p["wo"], {"k": k, "v": v}
+
+
+def gqa_cache_init(cfg, batch: int, max_len: int, dtype, *,
+                   device) -> Dict[str, torch.Tensor]:
+    """Zero ``k`` and ``v`` of shape ``(batch, size, KV, hd)`` in ``dtype``
+    and an int32 ``pos`` of shape ``(1, size)`` full of -1, where ``size``
+    is ``max_len`` (or ``min(max_len, window)`` with a window)."""
+    hd, KV = cfg.raw_head_dim, cfg.padded_kv_heads
+    size = min(max_len, cfg.window) if cfg.window else max_len
+    return {
+        "k": torch.zeros((batch, size, KV, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, size, KV, hd), dtype=dtype, device=device),
+        "pos": torch.full((1, size), -1, dtype=torch.int32, device=device),
+    }

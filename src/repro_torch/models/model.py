@@ -12,21 +12,27 @@ reentrant), as the reference wraps the scan body in ``jax.checkpoint``.
 ``decoder/seg0/b0/attn/wq``. The functions take either that module or a
 plain nested dict of tensors.
 
+Decode caches keep the reference's tree too: ``seg<i>/b<j>/{k,v,pos}``,
+each leaf stacked over the segment's layers (:func:`init_caches`).
+``forward(caches=, cache_pos=)`` and :func:`decode_step` write each
+layer's new keys and values into those tensors in place and return the
+same tree (the reference returns new arrays).
+
 Only ``"attn"`` blocks with GQA are ported (the dense family); other
 block kinds, MLA, windows, M-RoPE, encoders and frontends raise
-``NotImplementedError``, and so do decode caches.
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Any, Dict, Mapping, Tuple
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.attention import gqa_apply, gqa_init
+from repro_torch.models.attention import gqa_apply, gqa_cache_init, gqa_init
 from repro_torch.models.config import ModelConfig, Segment
 from repro_torch.models.layers import (
     embed_apply,
@@ -40,8 +46,10 @@ from repro_torch.models.layers import (
 )
 from repro_torch.persistence.state import flatten_state
 
-__all__ = ["Model", "ParamTree", "apply_block", "forward", "init_block",
-           "init_params", "init_segment", "lm_loss"]
+__all__ = ["Model", "ParamTree", "apply_block", "apply_segment",
+           "block_cache_init", "decode_step", "forward", "init_block",
+           "init_caches", "init_params", "init_segment", "lm_loss",
+           "segment_cache_init"]
 
 Params = Dict[str, Any]
 
@@ -81,15 +89,27 @@ def init_block(gen, kind: str, cfg: ModelConfig, dtype, *, device,
             "ffn": ffn_init(gen, D, cfg.d_ff, dtype, cfg.ffn_kind, **kw)}
 
 
+def block_cache_init(kind: str, cfg: ModelConfig, batch: int, max_len: int,
+                     dtype, enc_len: int = 0, *, device):
+    """One block's decode cache (``enc_len`` is for cross attention, which
+    is not ported)."""
+    if kind != "attn":
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    return gqa_cache_init(cfg, batch, max_len, dtype, device=device)
+
+
 def apply_block(kind: str, p, x: torch.Tensor, *, cfg: ModelConfig,
-                positions: torch.Tensor) -> torch.Tensor:
+                positions: torch.Tensor, cache=None, cache_pos=None):
+    """``(x after the block, its cache)``: the full sequence's
+    ``{"k", "v"}`` without ``cache``, else ``cache`` updated in place."""
     if kind != "attn":
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     eps = cfg.norm_eps
-    a, _ = gqa_apply(p["attn"], rmsnorm(x, p["norm1"], eps), cfg=cfg,
-                     positions=positions, causal=True)
+    a, new_cache = gqa_apply(p["attn"], rmsnorm(x, p["norm1"], eps), cfg=cfg,
+                             positions=positions, causal=True, cache=cache,
+                             cache_pos=cache_pos)
     x = x + a
-    return x + ffn_apply(p["ffn"], rmsnorm(x, p["norm2"], eps))
+    return x + ffn_apply(p["ffn"], rmsnorm(x, p["norm2"], eps)), new_cache
 
 
 def init_segment(gen, seg: Segment, cfg: ModelConfig, dtype, *,
@@ -107,19 +127,41 @@ def _layer(tree, i: int):
     return {k: _layer(tree[k], i) for k in tree.keys()}
 
 
-def _unit(seg: Segment, lp, x, *, cfg, positions):
+def segment_cache_init(seg: Segment, cfg: ModelConfig, batch: int,
+                       max_len: int, dtype, enc_len: int = 0, *, device):
+    """The segment's block caches, every leaf stacked over ``seg.repeat``
+    on a leading axis."""
+    return {f"b{i}": {k: v[None].repeat((seg.repeat,) + (1,) * v.dim())
+                      for k, v in block_cache_init(
+                          kind, cfg, batch, max_len, dtype, enc_len,
+                          device=device).items()}
+            for i, kind in enumerate(seg.pattern)}
+
+
+def _unit(seg: Segment, lp, x, *, cfg, positions, lc=None, cache_pos=None):
     for i, kind in enumerate(seg.pattern):
-        x = apply_block(kind, lp[f"b{i}"], x, cfg=cfg, positions=positions)
+        c = None if lc is None else lc[f"b{i}"]
+        x, _ = apply_block(kind, lp[f"b{i}"], x, cfg=cfg, positions=positions,
+                           cache=c, cache_pos=cache_pos)
     return x
 
 
 def apply_segment(seg: Segment, p, x: torch.Tensor, *, cfg, positions,
-                  remat: bool = False) -> torch.Tensor:
+                  caches=None, cache_pos=None, remat: bool = False):
+    """``(x after the segment, caches)``: ``caches`` (the segment's, updated
+    in place through per-layer views) or None. ``remat`` recomputes each
+    layer in the backward pass; decode takes no gradients, so it applies
+    without caches only."""
     for layer in range(seg.repeat):
+        lc = None if caches is None else _layer(caches, layer)
         body = functools.partial(_unit, seg, _layer(p, layer), cfg=cfg,
-                                 positions=positions)
-        x = checkpoint(body, x, use_reentrant=False) if remat else body(x)
-    return x
+                                 positions=positions, lc=lc,
+                                 cache_pos=cache_pos)
+        if remat and caches is None:
+            x = checkpoint(body, x, use_reentrant=False)
+        else:
+            x = body(x)
+    return x, caches
 
 
 # ========================================================================
@@ -154,24 +196,38 @@ def init_params(cfg: ModelConfig, seed: int = 0, *, device="cuda") -> Params:
 
 def forward(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], *,
             caches=None, cache_pos=None,
-            remat: bool = False) -> Tuple[torch.Tensor, None]:
-    """``(logits (B, S, padded vocab), None)`` over the full sequence."""
+            remat: bool = False) -> Tuple[torch.Tensor, Optional[Params]]:
+    """``(logits (B, S, padded vocab), caches)``. Without caches, over the
+    full sequence, and ``caches`` is None. With ``caches`` (from
+    :func:`init_caches`) and ``cache_pos`` (an int, or a 0-d int tensor),
+    every token takes the rotary position ``cache_pos``, each layer writes
+    its keys and values into ``caches`` in place and attends to the slots
+    up to ``cache_pos``, and the updated ``caches`` are returned."""
     _check_supported(cfg)
-    if caches is not None or cache_pos is not None:
-        raise NotImplementedError("decode caches are not ported yet")
+    if (caches is None) != (cache_pos is None):
+        raise NotImplementedError("forward with only one of caches and "
+                                  "cache_pos is not ported")
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_apply(params["embed"], tokens)
-    positions = batch.get("positions")
-    if positions is None:
-        positions = torch.arange(S, dtype=torch.int32,
-                                 device=tokens.device)[None].expand(B, S)
+    if cache_pos is not None:
+        positions = (cache_pos.to(tokens.device, torch.int32).expand(B, S)
+                     if torch.is_tensor(cache_pos) else
+                     torch.full((B, S), int(cache_pos), dtype=torch.int32,
+                                device=tokens.device))
+    else:
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(S, dtype=torch.int32,
+                                     device=tokens.device)[None].expand(B, S)
     for i, seg in enumerate(cfg.segments):
-        x = apply_segment(seg, params["decoder"][f"seg{i}"], x, cfg=cfg,
-                          positions=positions, remat=remat)
+        c = None if caches is None else caches[f"seg{i}"]
+        x, _ = apply_segment(seg, params["decoder"][f"seg{i}"], x, cfg=cfg,
+                             positions=positions, caches=c,
+                             cache_pos=cache_pos, remat=remat)
     x = rmsnorm(x, params["final_norm"], cfg.norm_eps)
     head = params["embed"] if cfg.tie_embeddings else params["head"]
-    return unembed_apply(head, x), None
+    return unembed_apply(head, x), caches
 
 
 def lm_loss(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], *,
@@ -181,6 +237,30 @@ def lm_loss(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], *,
     labels = batch["labels"]
     loss = softmax_xent(logits, torch.clamp(labels, min=0), labels >= 0)
     return loss, {"loss": loss}
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int, enc_len: int = 0,
+                *, device) -> Params:
+    """Empty decode caches for ``batch`` sequences of up to ``max_len``
+    tokens, in the model's dtype on ``device``: ``seg<i>/b<j>/{k, v, pos}``
+    as the reference builds them."""
+    _check_supported(cfg)
+    dtype = getattr(torch, cfg.dtype)
+    return {f"seg{i}": segment_cache_init(seg, cfg, batch, max_len, dtype,
+                                          enc_len, device=device)
+            for i, seg in enumerate(cfg.segments)}
+
+
+def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, caches,
+                cache_pos, extras: Optional[Mapping[str, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, Params]:
+    """One serving step: tokens (B, 1) and ``caches`` at ``cache_pos`` →
+    ``(logits (B, 1, padded vocab), caches)``, the caches updated in
+    place."""
+    batch = {"tokens": tokens}
+    if extras:
+        batch.update(extras)
+    return forward(params, cfg, batch, caches=caches, cache_pos=cache_pos)
 
 
 # ========================================================================

@@ -786,10 +786,10 @@ class Pool:
 
     def kv(self, name: str, cfg=None):
         """The KV engine (``repro.core.recovery.PersistentKV``) is not
-        ported yet (ROADMAP.md, queue 1, item 4)."""
+        ported yet (ROADMAP.md, queue 1, item 1)."""
         raise NotImplementedError(
             "Pool.kv: PersistentKV is not ported to repro_torch yet "
-            "(ROADMAP.md, queue 1, item 4)")
+            "(ROADMAP.md, queue 1, item 1)")
 
     def wal(self, name: str = "train_wal", *,
             capacity_steps: Optional[int] = None,

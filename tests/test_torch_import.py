@@ -27,6 +27,7 @@ def test_persistence_imports_with_jax_and_repro_blocked():
         import repro_torch.data
         import repro_torch.launch.steps
         import repro_torch.launch.train
+        import repro_torch.launch.serve
         import repro_torch.persistence.flusher
         from repro_torch.configs import get_config
         from repro_torch.models import init_params

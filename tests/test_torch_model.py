@@ -24,7 +24,8 @@ from repro.models import init_params as jax_init_params
 from repro.models import lm_loss as jax_lm_loss
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.models import Model, forward, init_params, lm_loss
-from repro_torch.models.attention import FLASH_THRESHOLD, _attend, gqa_apply
+from repro_torch.models.attention import (FLASH_THRESHOLD, _attend, gqa_apply,
+                                          gqa_cache_init)
 from repro_torch.persistence.state import (TINYLLAMA_1_1B_PARAMS,
                                            flatten_state, trainer_state,
                                            unflatten_state)
@@ -169,7 +170,7 @@ def test_heads_group_as_the_reference_groups_them():
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "deepseek-v2-236b",
-                                  "stablelm-12b", "whisper-large-v3"])
+                                  "qwen2-vl-7b", "whisper-large-v3"])
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config(arch)
@@ -189,6 +190,7 @@ def test_unported_attention_paths_raise():
         gqa_apply(attn, x, cfg=cfg, positions=pos)
     with pytest.raises(NotImplementedError, match="window"):
         gqa_apply(attn, x[:, :4], cfg=cfg, positions=pos[:, :4], window=2)
-    with pytest.raises(NotImplementedError, match="cache"):
-        forward(unflatten_state(p), cfg, {"tokens": torch.zeros(1, 1)},
-                cache_pos=torch.tensor(0))
+    cache = gqa_cache_init(cfg, 1, 4, torch.bfloat16, device="cpu")
+    with pytest.raises(NotImplementedError, match="window"):
+        gqa_apply(attn, x[:, :1], cfg=cfg, positions=pos[:, :1], window=2,
+                  cache=cache, cache_pos=0)
