@@ -1071,13 +1071,15 @@ def decode_profile(params, cfg, tok, caches, pos: int, median_s: float,
     """``steps`` decode steps at ``pos`` under ``torch.profiler``: the
     device activities (kernels, copies, fills) a step runs and their
     summed time, beside the unprofiled median step; the rest of the step
-    is the device's idle share."""
+    is the device's idle share. The copies (``aten::copy_``) are listed by
+    their input shapes, which name what each one copies."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.models import decode_step
     with torch.inference_mode(), profile(activities=[
-            ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ProfilerActivity.CPU, ProfilerActivity.CUDA],
+            record_shapes=True) as prof:
         for _ in range(steps):
             decode_step(params, cfg, tok, caches, pos)
         torch.cuda.synchronize()
@@ -1095,6 +1097,13 @@ def decode_profile(params, cfg, tok, caches, pos: int, median_s: float,
           f"{busy:.6f} s a step, {busy / median_s:.1%} of the median step "
           f"(idle {1 - busy / median_s:.1%}); most device us a step: "
           f"{json.dumps(names)}", flush=True)
+    copies = sorted((e for e in prof.key_averages(group_by_input_shape=True)
+                     if e.key == "aten::copy_"),
+                    key=lambda e: -e.self_device_time_total)
+    print("serve: aten::copy_ a step by input shapes (device us, calls): "
+          + json.dumps([(e.input_shapes, round(e.self_device_time_total
+                                               / steps, 1), e.count // steps)
+                        for e in copies[:6]]), flush=True)
 
 
 def serve_path(seed: int, layers: int, *, batch: int = SERVE_BATCH,
@@ -1106,10 +1115,13 @@ def serve_path(seed: int, layers: int, *, batch: int = SERVE_BATCH,
 
     1. ``serve_batch``: ``batch`` prompts of ``prompt`` tokens from the
        synthetic pipeline, ``gen`` greedy tokens, each in the vocabulary;
-    2. the prompt and the generated tokens stepped through ``decode_step``
-       from fresh caches (each step timed after ``torch.cuda.synchronize``)
-       against ``forward`` over the whole sequence: every position's
-       logits within 4 bf16 ulps of the largest;
+    2. the sequence ``serve_batch`` fed (the prompt, its last token again
+       at position ``prompt``, then every generated token but the last)
+       stepped through ``decode_step`` from fresh caches (each step timed
+       after ``torch.cuda.synchronize``) against ``forward`` over the
+       whole sequence: every position's logits within 4 bf16 ulps of the
+       largest; and each generated token's logit in that forward within 4
+       bf16 ulps of its position's largest, so the greedy loop chose it;
     3. row 0's first ``cpu_steps`` tokens through ``decode_step`` on the
        card and on the CPU with the same parameters: the logits, and each
        cache leaf's k and v, within 4 bf16 ulps of their largest value."""
@@ -1140,7 +1152,9 @@ def serve_path(seed: int, layers: int, *, batch: int = SERVE_BATCH,
           f"0 begins {toks[0, :8].tolist()}", flush=True)
 
     # 2. decode (teacher-forced) against the full forward -------------------
-    seq = torch.cat([prompts, toks], dim=1)            # (B, P + gen)
+    # what serve_batch fed: the prompt, its last token again at position P,
+    # then each generated token but the last
+    seq = torch.cat([prompts, prompts[:, -1:], toks[:, :-1]], dim=1)
     n = seq.shape[1]
     step_s = []
     with torch.inference_mode():
@@ -1163,6 +1177,16 @@ def serve_path(seed: int, layers: int, *, batch: int = SERVE_BATCH,
           flush=True)
     if not err <= lim:
         fail("decode's logits disagree with the full forward's")
+    gl = full[:, prompt:].float()                      # (B, gen, V)
+    best = gl.max(dim=-1).values
+    chosen = torch.gather(gl, -1, toks.long()[..., None])[..., 0]
+    glim = 4 * torch.exp2(torch.floor(torch.log2(best.abs())) - 7)
+    gap = float(((best - chosen) / glim).max())
+    print(f"serve: each generated token's logit in that forward, below its "
+          f"position's largest: worst {gap!r} of the limit (4 bf16 ulps of "
+          f"the largest; {batch} x {gen} tokens)", flush=True)
+    if not gap <= 1:
+        fail("serve_batch's greedy tokens are not the forward's argmax")
     med = statistics.median(step_s[1:])
     print(f"serve: decode step ({batch} rows, {n}-slot caches) wall s median "
           f"{med:.6f} of {n - 1} after the first ({step_s[0]:.4f}), min "

@@ -80,7 +80,7 @@ def gqa_apply(
     cross: bool = False,
     kv_input: Optional[torch.Tensor] = None,
     cache: Optional[Dict[str, torch.Tensor]] = None,
-    cache_pos=None,                      # int or 0-d int tensor
+    cache_pos: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Attention of ``x`` (B,S,D): ``(out @ wo, cache)``. Without a cache,
     over the full sequence, and ``cache`` is ``{"k", "v"}`` of ``x``; with
@@ -116,10 +116,7 @@ def gqa_apply(
         T = cache["k"].shape[1]
         if S > T:
             raise ValueError(f"{S} tokens do not fit a cache of {T} slots")
-        # an int stays on the host and a tensor on its device: no sync
-        start = (torch.clamp(cache_pos, 0, T - S)
-                 if torch.is_tensor(cache_pos)
-                 else min(max(int(cache_pos), 0), T - S))
+        start = min(max(cache_pos, 0), T - S)
         ar = torch.arange(T, device=x.device)
         slots = ar[:S] + start
         cache["k"].index_copy_(1, slots, k)

@@ -93,9 +93,13 @@ def ffn_init(gen, d: int, f: int, dtype, kind: str = "swiglu", *, device,
 
 def ffn_apply(p, x: torch.Tensor) -> torch.Tensor:
     """SwiGLU (``silu(x @ gate) * (x @ up)``) or, without a gate, the tanh
-    GELU that ``jax.nn.gelu`` defaults to; then ``@ down``."""
+    GELU that ``jax.nn.gelu`` defaults to; then ``@ down``. The SiLU is
+    ``g * (1 / (1 + exp(-g)))`` op by op in ``g``'s dtype, the form XLA
+    lowers ``jax.nn.silu`` to, so each step rounds where the reference's
+    does (``F.silu`` rounds once)."""
     if "gate" in p:
-        h = F.silu(x @ p["gate"]) * (x @ p["up"])
+        g = x @ p["gate"]
+        h = g * (1 / (1 + torch.exp(-g))) * (x @ p["up"])
     else:
         h = F.gelu(x @ p["up"], approximate="tanh")
     return h @ p["down"]

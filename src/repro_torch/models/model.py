@@ -108,8 +108,13 @@ def apply_block(kind: str, p, x: torch.Tensor, *, cfg: ModelConfig,
     a, new_cache = gqa_apply(p["attn"], rmsnorm(x, p["norm1"], eps), cfg=cfg,
                              positions=positions, causal=True, cache=cache,
                              cache_pos=cache_pos)
-    x = x + a
-    return x + ffn_apply(p["ffn"], rmsnorm(x, p["norm2"], eps)), new_cache
+    # XLA keeps the sum in float32 for the second norm (its default excess
+    # precision drops the round trip through bf16) and rounds it for the
+    # residual; the port does the same
+    s = x.float() + a.float()
+    x = s.to(a.dtype)
+    h = rmsnorm(s, p["norm2"], eps).to(a.dtype)
+    return x + ffn_apply(p["ffn"], h), new_cache
 
 
 def init_segment(gen, seg: Segment, cfg: ModelConfig, dtype, *,
@@ -199,7 +204,7 @@ def forward(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], *,
             remat: bool = False) -> Tuple[torch.Tensor, Optional[Params]]:
     """``(logits (B, S, padded vocab), caches)``. Without caches, over the
     full sequence, and ``caches`` is None. With ``caches`` (from
-    :func:`init_caches`) and ``cache_pos`` (an int, or a 0-d int tensor),
+    :func:`init_caches`) and ``cache_pos`` (an int, read once on the host),
     every token takes the rotary position ``cache_pos``, each layer writes
     its keys and values into ``caches`` in place and attends to the slots
     up to ``cache_pos``, and the updated ``caches`` are returned."""
@@ -211,10 +216,9 @@ def forward(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], *,
     B, S = tokens.shape
     x = embed_apply(params["embed"], tokens)
     if cache_pos is not None:
-        positions = (cache_pos.to(tokens.device, torch.int32).expand(B, S)
-                     if torch.is_tensor(cache_pos) else
-                     torch.full((B, S), int(cache_pos), dtype=torch.int32,
-                                device=tokens.device))
+        cache_pos = int(cache_pos)
+        positions = torch.full((B, S), cache_pos, dtype=torch.int32,
+                               device=tokens.device)
     else:
         positions = batch.get("positions")
         if positions is None:

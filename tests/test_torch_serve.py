@@ -5,10 +5,9 @@ Parameters come from the JAX ``init_params(get_reduced("tinyllama-1.1b"))``
 and cross to the port as bytes (``trainer_state``); tokens are drawn
 with numpy from a seed. Both sides decode in bf16, so logits are held
 within 4 bf16 ulps of the largest logit, the bound of
-``tests/test_torch_model.py``, and the caches within 8 ulps of their
-largest value (see :func:`test_decode_caches_match_jax`); in float32
-the two decodes agree to 1e-5. The ``pos`` leaves and the greedy tokens
-must be equal. The four dense architectures' configurations are held
+``tests/test_torch_model.py``, and the caches within 4 ulps of their
+largest value; in float32 the two decodes agree to 1e-5. The ``pos``
+leaves and the greedy tokens must be equal. The four dense architectures' configurations are held
 against the reference's, full and reduced.
 """
 
@@ -109,14 +108,13 @@ def test_decode_logits_match_jax(decoded):
 
 @pytest.mark.parametrize("leaf", ["k", "v", "pos"])
 def test_decode_caches_match_jax(decoded, leaf):
-    """The caches after 12 steps. Layer 0's keys and values are equal bit
-    for bit; each later layer's inherit the bf16 roundings of the layers
-    below it, which the two packages place differently (XLA computes
-    ``jax.nn.silu`` as ``x * sigmoid(x)`` with a bf16 sigmoid; torch's
-    ``silu`` rounds once): measured worst 4.25 ulps of the leaf's largest
-    value (v, the last layer), so the bound is 8. The float32 decode
-    (:func:`test_float32_decode_matches_jax`) holds the same math to
-    1e-5."""
+    """The caches after 12 steps. Layers 0 and 1 are equal bit for bit,
+    which pins the port's roundings to the compiled reference's (the
+    SiLU op by op, the second norm on the float32 sum); later layers
+    inherit float32 sums whose order differs between the packages
+    (matrix products, norms), so they are held within 4 ulps of the
+    leaf's largest value. The float32 decode (:func:`test_float32_decode_matches_jax`)
+    holds the same math to 1e-5."""
     _, _, jc, tc = decoded
     keys = [k for k in jc if k.endswith("/" + leaf)]
     assert keys and [k for k in tc if k.endswith("/" + leaf)] == keys
@@ -125,10 +123,10 @@ def test_decode_caches_match_jax(decoded, leaf):
             assert tc[k].dtype == torch.int32
             np.testing.assert_array_equal(tc[k].numpy(), np.asarray(jc[k]))
         else:
-            assert torch.equal(tc[k][0].float(),
-                               torch.from_numpy(np.asarray(jc[k][0],
-                                                           np.float32)))
-            assert_within_ulps(tc[k], jc[k], k, ulps=8)
+            for layer in (0, 1):
+                assert torch.equal(tc[k][layer].float(), torch.from_numpy(
+                    np.asarray(jc[k][layer], np.float32))), (k, layer)
+            assert_within_ulps(tc[k], jc[k], k)
 
 
 def test_float32_decode_matches_jax():
@@ -190,14 +188,14 @@ def test_cache_write_clamps_as_jax_does(setup, s, last_pos):
                                jnp.int32(last_pos))
     with torch.inference_mode():
         tout, tc = decode_step(tp, cfg, torch.from_numpy(last), tc,
-                               torch.tensor(last_pos, dtype=torch.int32))
+                               last_pos)
     assert_within_ulps(tout, jout, "logits")
     jc, tc = jax_flatten(jc), flatten_state(tc)
     for k in jc:
         if k.endswith("/pos"):
             np.testing.assert_array_equal(tc[k].numpy(), np.asarray(jc[k]))
         else:
-            assert_within_ulps(tc[k], jc[k], k, ulps=8)
+            assert_within_ulps(tc[k], jc[k], k)
 
 
 @pytest.mark.parametrize("arch", DENSE)
@@ -243,7 +241,7 @@ def test_serve_step_matches_jax(setup):
         assert_within_ulps(tl, jl, f"step {t}")
     jc, tc = jax_flatten(jc), flatten_state(tc)
     for k in jc:
-        assert_within_ulps(tc[k], jc[k], k, ulps=8)
+        assert_within_ulps(tc[k], jc[k], k)
 
 
 def test_serve_batch_greedy_tokens_are_jax_tokens_in_float32():
@@ -260,29 +258,15 @@ def test_serve_batch_greedy_tokens_are_jax_tokens_in_float32():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-def test_serve_batch_bf16_tokens_are_jax_greedy_choices(setup):
-    """In bf16 a near-tie can flip a greedy token (here JAX's top two
-    logits at one step are 1 ulp apart, and equal in the port's), after
-    which the sequences differ. So each token the port generates is held
-    against JAX's logits on the port's own sequence (teacher-forced): it
-    lies within 4 bf16 ulps of JAX's largest logit at that step."""
+def test_serve_batch_greedy_tokens_are_jax_tokens(setup):
+    """In bf16, the model's dtype, the greedy tokens are the JAX
+    package's, token for token."""
     cfg, jp, tp = setup
-    P, gen = 8, 6
-    prompts = synthetic_batch(cfg, 2, P, cursor=0)["tokens"]
-    got, _ = serve_batch(cfg, tp, torch.from_numpy(prompts), gen)
-    got = got.numpy()
-    fed = np.concatenate([prompts, prompts[:, -1:], got[:, :-1]], axis=1)
-    step = jax_step(cfg)
-    jc = jax_init_caches(cfg, 2, P + gen)
-    for t in range(P + gen):
-        logits, jc = step(jp, jnp.asarray(fed[:, t:t + 1]), jc, jnp.int32(t))
-        if t < P:
-            continue
-        logits = np.asarray(logits[:, 0], dtype=np.float32)
-        top = logits.max(axis=-1)
-        chosen = logits[np.arange(2), got[:, t - P]]
-        lim = np.array([4 * bf16_ulp(x) for x in top])
-        assert np.all(top - chosen <= lim), (t, top - chosen)
+    prompts = synthetic_batch(cfg, 2, 8, cursor=0)["tokens"]
+    want, _ = jax_serve_batch(cfg, jp, jnp.asarray(prompts), 6)
+    got, tps = serve_batch(cfg, tp, torch.from_numpy(prompts), 6)
+    assert got.dtype == torch.int32 and got.shape == (2, 6) and tps > 0
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_serve_batch_samples_with_a_generator(setup):
