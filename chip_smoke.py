@@ -4,7 +4,7 @@
 Run from the repository root:
 
     python3 chip_smoke.py [--seed 0] [--layers 22] [--train-layers 2]
-                          [--serve-layers 22]
+                          [--serve-layers 22] [--cluster-pages 32768]
 
 Phases (any failure exits non-zero):
 
@@ -25,7 +25,9 @@ Phases (any failure exits non-zero):
    over 3.35 TB/s) and, for the gather and the scatter, the time of the
    one PyTorch call that computes the same function; then the trainer's
    leaf kinds: the 4-byte int32 ``o/count`` and the f32 moment
-   ``o/m/embed``.
+   ``o/m/embed``; last, apply_unpack at the cluster migration copy's
+   shapes (a range of 4 KiB pages, 1,024 pages of 4 KiB and of 512 B),
+   each also with one corrupted page.
 3. main path — tinyllama-1.1b's 12 parameter leaves at full width on the
    card, from ``--seed``: WAL commit + full save, two seeded partial
    updates each with a WAL commit and a delta save, the pages of a 4th
@@ -63,9 +65,23 @@ Phases (any failure exits non-zero):
    0's first 16 decode steps on the card give the CPU's logits and caches.
    It prints tokens/s and the decode step's median. Its own counts: all
    seven kernels 0 (serving touches no checkpoint kernel).
+8. cluster path — ``repro_torch.cluster.ClusterKV(device="cuda")``: three
+   shards of 4 KiB pages and 64 B values (``--cluster-pages`` of them, 64
+   ranges) loaded, checkpointed and given a committed tail of puts, grown
+   to four shards 4 ranges at a time and cut at the 8th ownership flip,
+   every device crashed, the cluster reopened and the grow resumed. Every
+   range is owned by exactly its old or its new owner after the reopen,
+   the map is the target after the resume, every written key reads back
+   its last committed value, and every moved page the tail did not touch
+   has its old durable image on its new owner. Its own counts:
+   apply_unpack once per range copied, the other six 0. It prints the
+   reshard's and the resume's times and reports, and the host seconds of
+   the migration copies with their device round trips.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
-card's name and power limit and one ``{"kernels": [...]}`` line, whose
+card's name and power limit, one ``{"cluster_path": {...}}`` line (the
+cluster path's apply_unpack launches beside the kernel's time at the
+migration's shape) and one ``{"kernels": [...]}`` line, whose
 ``launches`` are each kernel's CUDA launches on the path it serves
 (``path``: the trainer path for flush_pack, popcnt_checksum and
 apply_unpack, the staged run for dirty_diff, or the delta round trip for
@@ -103,6 +119,9 @@ MANIFEST = 64 << 20
 DEV = "cuda"
 #: the serve path's batch, prompt length and generated tokens
 SERVE_BATCH, PROMPT, GEN = 8, 512, 128
+#: the cluster path's key space in 4 KiB pages (65,536 halved: see
+#: ``cluster_sizes``) and its committed puts after the checkpoint
+CLUSTER_PAGES, CLUSTER_TAIL = 32768, 4096
 
 
 def serve_sizes(layers: int) -> str:
@@ -361,6 +380,76 @@ def kernel_phase(state, seed: int) -> dict:
     print(f"kernels checked bit for bit against their plain versions in "
           f"{checked} cases: {json.dumps(list(rows))}", flush=True)
     return rows
+
+
+def migration_cases(seed: int, ranges: tuple) -> dict:
+    """``apply_unpack`` at the migration copy's shapes: ``(block_bytes,
+    k)`` for each of ``ranges`` (k pages of random bytes), checksums the
+    bare per-page popcounts as the router computes them (numpy uint32 on
+    the host), ids ``0..k-1``, onto a zeroed base. Each case holds bit for
+    bit against the plain version, and again with one checksum off by one
+    (``ok`` 0 there, ``nbad`` 1). Each is timed as launches back to back
+    (the kernel) and as the wrapper's call (with its host sync); the first
+    case is returned as the cluster path's row."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import apply_unpack, build
+    au_ops = sys.modules["repro_torch.kernels.apply_unpack.ops"]
+
+    gen = torch.Generator(device=DEV).manual_seed(seed + 7)
+    row = None
+    for bb, k in ranges:
+        packed = torch.randint(0, 256, (k * bb,), generator=gen,
+                               dtype=torch.uint8, device=DEV)
+        host = packed.cpu().numpy()
+        exp = np.array([int(np.unpackbits(host[i * bb:(i + 1) * bb]).sum())
+                        for i in range(k)], dtype=np.uint32)
+        idx = np.arange(k, dtype=np.int32)
+        bad = exp.copy()
+        bad[k // 2] += 1
+        for label, e, want_bad in (("clean", exp, 0), ("one corrupted", bad,
+                                                       1)):
+            base = torch.zeros(k * bb, dtype=torch.uint8, device=DEV)
+            got = apply_unpack(base, packed, idx, e, block_bytes=bb)
+            want = apply_unpack(torch.zeros_like(base), packed, idx, e,
+                                block_bytes=bb, impl="ref")
+            if not (equal(got.out, want.out) and equal(got.out, packed)
+                    and torch.equal(got.ok, want.ok)
+                    and torch.equal(got.counts, want.counts)
+                    and got.nbad == want.nbad == want_bad
+                    and (want_bad == 0 or int(got.ok[k // 2]) == 0)):
+                fail(f"apply_unpack disagrees with its plain version at the "
+                     f"migration's shape ({k} x {bb} B, {label})")
+        base = torch.zeros(k * bb, dtype=torch.uint8, device=DEV)
+        idx_d = torch.from_numpy(idx).to(DEV)
+        exp_d = torch.from_numpy(exp.astype(np.int64)).to(DEV)
+        ok = torch.empty(k, dtype=torch.int32, device=DEV)
+        counts = torch.empty(k, dtype=torch.int32, device=DEV)
+        lib = build.library("apply_unpack", au_ops._SIGNATURES)
+        stream = torch.cuda.current_stream().cuda_stream
+        # the kernel alone: launches back to back, no host sync between
+        ms = cuda_ms(lambda: lib.apply_unpack(
+            packed.data_ptr(), bb, k, idx_d.data_ptr(), exp_d.data_ptr(),
+            base.data_ptr(), base.numel(), ok.data_ptr(), counts.data_ptr(),
+            stream), 50)
+        call = cuda_ms(lambda: apply_unpack(base, packed, idx_d, exp_d,
+                                            block_bytes=bb), 20)
+        plain = cuda_ms(lambda: apply_unpack(base, packed, idx_d, exp_d,
+                                             block_bytes=bb, impl="ref"), 5)
+        nbytes, ops = 2 * k * bb + 20 * k, k * bb // 2
+        bound, by = bound_ms(nbytes, ops)
+        print(f"kernel apply_unpack, migration copy: {k} pages of {bb} B: "
+              f"bit for bit against its plain version, clean and with one "
+              f"corrupted page (ok 0 there, nbad 1); kernel_ms={ms:.4f} "
+              f"(launches back to back) call_ms={call:.4f} (the wrapper as "
+              f"the router calls it: launch and the host sync on nbad) "
+              f"plain_ms={plain:.4f} bound_ms={bound:.4f} ({by}: {nbytes} B "
+              f"at 3.35 TB/s)", flush=True)
+        if row is None:
+            row = dict(shape=f"{k} pages of {bb} B", ms=ms, call_ms=call,
+                       plain_ms=plain, bound_ms=bound, bound_by=by,
+                       library_ms=None, max_abs_err=0)
+    return row
 
 
 def equal(a, b) -> bool:
@@ -1232,6 +1321,279 @@ def serve_path(seed: int, layers: int, *, batch: int = SERVE_BATCH,
         fail("the card's caches disagree with the CPU's")
 
 
+# ------------------------------------------------------------------ cluster
+
+class ClusterCut(BaseException):
+    """Raised by the cluster path's failpoint hook to cut a view change
+    (a BaseException, so no handler of the protocol eats it)."""
+
+
+class StageClock:
+    """A view change's failpoint hook that times it: host seconds between
+    consecutive protocol points, summed by the point that ends each
+    stretch (``copy:page`` a page landed, ``copy:wal`` a WAL record,
+    ``flush:done`` a target's write-back, ``own:committed`` an ownership
+    flip, ``invalidate:done`` a source's discard, ``view:committed`` the
+    scrub and the commit). ``cut=(point, n)`` raises at the n-th
+    ``point``."""
+
+    def __init__(self, cut=None) -> None:
+        self.cut = cut
+        self.s = {}
+        self.n = {}
+        self.last = time.perf_counter()
+
+    def __call__(self, point: str) -> None:
+        now = time.perf_counter()
+        self.s[point] = self.s.get(point, 0.0) + now - self.last
+        self.n[point] = self.n.get(point, 0) + 1
+        self.last = now
+        if self.cut is not None and (point, self.n[point]) == self.cut:
+            raise ClusterCut(point)
+
+    def line(self) -> str:
+        return ", ".join(f"{k} {v:.3f} ({self.n[k]})" for k, v in
+                         sorted(self.s.items(), key=lambda x: -x[1]))
+
+
+class HostSplit:
+    """Host seconds and calls of wrapped callables, by name."""
+
+    def __init__(self) -> None:
+        self.s = {}
+        self.n = {}
+        self._undo = []
+
+    def wrap(self, owner, attr: str, name: str) -> None:
+        orig = getattr(owner, attr)
+
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig(*args, **kw)
+            finally:
+                self.s[name] = self.s.get(name, 0.0) + time.perf_counter() - t0
+                self.n[name] = self.n.get(name, 0) + 1
+
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, orig))
+
+    def undo(self) -> None:
+        while self._undo:
+            setattr(*self._undo.pop())
+
+
+def cluster_sizes(npages: int) -> dict:
+    """The cluster path's configuration, for the ``reduced:`` line. Pages
+    and values keep ``KVConfig``'s defaults (4 KiB, 64 B); the key space is
+    cut (a deployment holds gigabytes, and the engine's host code runs tens
+    of us a put): 65,536 pages would be 256 MiB, and the default is half
+    of that, since a rehearsal of this path on a CPU took 42.8 s at 16,384
+    pages, which scales to ~170 s at 65,536, over the 150 s allowed it."""
+    return {"shards": "3 grown to 4, each on its own in-memory pool, plus a "
+                      "meta pool for the shard map",
+            "pages": f"{npages} of 4096 B ({npages * 4096} B key space, "
+                     f"{npages * 64} keys of 64 B values)",
+            "cut": f"the key space: {npages} pages of the 65536 (256 MiB) "
+                   f"planned; the default halves it, as a CPU rehearsal "
+                   f"scaled to ~170 s of host work at 65536",
+            "ranges": f"64 of {npages // 64} pages "
+                      f"({npages // 64 * 4096} B)",
+            "load": f"8 records in every page ({npages * 8} puts), "
+                    f"checkpointed, then {CLUSTER_TAIL} committed puts"}
+
+
+def cluster_path(seed: int, npages: int, rate_gbps: float) -> dict:
+    """The sharded KV through ``repro_torch.cluster.ClusterKV`` on the
+    card: a three-shard cluster of 4 KiB pages and 64 B values loaded with
+    8 records in every page (from ``seed``), committed and checkpointed,
+    then ``CLUSTER_TAIL`` committed puts not checkpointed; a grow to four
+    shards 4 ranges at a time, cut at the 8th ownership flip; a crash of
+    every device (eviction probability 0.5, the meta pool's too); a reopen
+    and ``resume``. Every migration copy verifies and assembles its range
+    through ``apply_unpack`` on the card. Checks: each range owned by
+    exactly its old or its new owner after the reopen, the target view
+    after the resume, every written key's last committed value, and the
+    durable image of every moved page the tail did not touch equal, on
+    its new owner, to its image before the move. Returns the apply_unpack
+    launches the path must have made: one per range copied before the cut
+    (its ``flush:done`` points) plus one per range the resume moved."""
+    import numpy as np
+    from repro_torch.cache import BufferManager
+    from repro_torch.cluster import ClusterConfig, ClusterKV
+    from repro_torch.core import KVConfig, PersistentKV
+    from repro_torch.core.costmodel import PMemCostModel
+    from repro_torch.pool import Pool
+
+    cm = PMemCostModel(hbm_read_bw_gbps=rate_gbps)
+    cfg = ClusterConfig(kv=KVConfig(npages=npages, page_size=4096,
+                                    value_size=64, log_capacity=1 << 22),
+                        n_ranges=64)
+    rpp = cfg.kv.recs_per_page
+    t0 = time.perf_counter()
+    meta = Pool.create(None, ClusterKV.meta_pool_bytes(cfg))
+    pools = {sid: Pool.create(None, ClusterKV.shard_pool_bytes(cfg))
+             for sid in range(4)}
+    c = ClusterKV(meta, pools, cfg, shards=range(3), device=DEV,
+                  cost_model=cm)
+    print(f"cluster: {len(pools)} shard pools of "
+          f"{ClusterKV.shard_pool_bytes(cfg)} B and a meta pool of "
+          f"{ClusterKV.meta_pool_bytes(cfg)} B built in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+    # 1. load: 8 records in every page, committed and checkpointed ------
+    rng = np.random.default_rng(seed)
+    keys = (np.arange(npages)[:, None] * rpp
+            + np.arange(8)[None, :] * (rpp // 8)).reshape(-1)
+    values = rng.integers(0, 256, (keys.size + CLUSTER_TAIL, 64),
+                          dtype=np.uint8)
+    row = {}
+    t0 = time.perf_counter()
+    for i, k in enumerate(keys.tolist()):
+        c.put(k, values[i].tobytes())
+        row[k] = i
+    c.commit()
+    t_put = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c.checkpoint()
+    t_ckpt = time.perf_counter() - t0
+    # 2. a committed tail of puts, not checkpointed ----------------------
+    tail = rng.integers(0, cfg.nkeys, CLUSTER_TAIL)
+    t0 = time.perf_counter()
+    for j, k in enumerate(tail.tolist()):
+        c.put(k, values[keys.size + j].tobytes())
+        row[k] = keys.size + j
+    c.commit()
+    t_tail = time.perf_counter() - t0
+    print(f"cluster: load {keys.size} puts in {t_put:.2f} s "
+          f"({t_put / keys.size * 1e6:.1f} us a put), checkpoint "
+          f"{t_ckpt:.2f} s, tail {CLUSTER_TAIL} puts {t_tail:.2f} s",
+          flush=True)
+
+    # 3. what the grow moves, and the images to hold it to ----------------
+    target = [0, 1, 2, 3]
+    before = dict(c.map.owners())
+    goal = c.map.assignment(target)
+    moving = c.map.moving_ranges(target)
+    touched = {int(k) // rpp for k in tail.tolist()}
+    kept = {}
+    for r in moving:
+        eng = c.engine(before[r])
+        for pid in c._range_pids(r):
+            if pid not in touched:
+                kept[pid] = eng.durable_page_image(pid).tobytes()
+    print(f"cluster: the grow to {target} moves {len(moving)} of "
+          f"{cfg.n_ranges} ranges: {moving}; {len(kept)} of their "
+          f"{len(moving) * cfg.pages_per_range} pages untouched by the tail "
+          f"are held to their durable images", flush=True)
+
+    split = HostSplit()
+
+    def instrument(cluster):
+        split.wrap(cluster, "_copy_pages", "_copy_pages")
+        split.wrap(PersistentKV, "durable_page_image", "durable_page_image")
+        split.wrap(np, "unpackbits", "np.unpackbits summary")
+        split.wrap(BufferManager, "put", "cache.put")
+
+    # 4. the grow, cut at the 8th ownership flip -------------------------
+    c.failpoints = clock = StageClock(cut=("own:committed", 8))
+    instrument(c)
+    t0 = clock.last = time.perf_counter()
+    vc = c.begin_reshard(target, width=4)
+    try:
+        vc.run()
+        fail("the cluster's grow ran past its failpoint")
+    except ClusterCut:
+        pass
+    t_reshard = time.perf_counter() - t0
+    split.undo()
+    copied = clock.n["flush:done"]
+    rep1 = vc.report()
+    copy_s1 = c.device_copy_s
+
+    # 5. crash every device ----------------------------------------------
+    t0 = time.perf_counter()
+    crash = np.random.default_rng(seed)
+    meta.pmem.crash(rng=crash, evict_prob=0.5)
+    for sid in sorted(pools):
+        pools[sid].pmem.crash(rng=crash, evict_prob=0.5)
+    t_crash = time.perf_counter() - t0
+    del c, vc
+
+    # 6. reopen and resume -------------------------------------------------
+    t0 = time.perf_counter()
+    meta2 = Pool.open(pmem=meta.pmem)
+    pools2 = {sid: Pool.open(pmem=p.pmem) for sid, p in pools.items()}
+    c2 = ClusterKV.open(meta2, pools2, cfg, device=DEV, cost_model=cm)
+    t_reopen = time.perf_counter() - t0
+    after = dict(c2.map.owners())
+    both = [r for r in range(cfg.n_ranges) if after[r] not in
+            (before[r], goal[r])]
+    if both:
+        fail(f"cluster: ranges {both} are owned by neither their old nor "
+             f"their new owner after the reopen")
+    flipped = sum(after[r] != before[r] for r in moving)
+    print(f"cluster: reopen {t_reopen:.2f} s (crash {t_crash:.2f} s): every "
+          f"range owned by exactly its old or its new owner; {flipped} of "
+          f"{len(moving)} moving ranges had flipped, view pending "
+          f"{c2.map.pending}", flush=True)
+    instrument(c2)
+    c2.failpoints = clock2 = StageClock()
+    t0 = clock2.last = time.perf_counter()
+    rep2 = c2.resume(width=4)
+    t_resume = time.perf_counter() - t0
+    split.undo()
+    if rep2 is None or c2.map.pending is not None \
+            or dict(c2.map.owners()) != goal \
+            or tuple(c2.map.shards) != tuple(target):
+        fail("cluster: the resume did not reach the target view")
+    print(f"cluster: after the resume the map equals the target assignment "
+          f"and no view is pending", flush=True)
+    for label, rep, wall, clk in (("grow (cut)", rep1, t_reshard, clock),
+                                  ("resume", rep2, t_resume, clock2)):
+        print(f"cluster: {label}: wall_s={wall:.3f} ranges committed="
+              f"{len(rep.ranges_moved)} pages={rep.pages_moved} "
+              f"page_bytes={rep.page_bytes} wal_records="
+              f"{rep.wal_records_moved} wal_bytes={rep.wal_bytes} "
+              f"modeled engine_ns={rep.engine_ns!r} wall_ns={rep.wall_ns!r}; "
+              f"host s by the protocol point ending each stretch (points): "
+              f"{clk.line()}", flush=True)
+    copy_s = copy_s1 + c2.device_copy_s
+    total = split.s.get("_copy_pages", 0.0)
+    named = {k: v for k, v in split.s.items() if k != "_copy_pages"}
+    rest = total - copy_s - sum(named.values())
+    print("cluster: host seconds in _copy_pages over the grow and the resume "
+          f"({split.n.get('_copy_pages', 0)} ranges): {total:.3f}, of which "
+          f"the device round trip (upload, apply_unpack, download) "
+          f"{copy_s:.3f}; "
+          + ", ".join(f"{k} {v:.3f} ({split.n[k]} calls)"
+                      for k, v in sorted(named.items(), key=lambda x: -x[1]))
+          + f"; the rest (the summary's sums, per-page copies, slicing, "
+            f"bookkeeping) {rest:.3f}", flush=True)
+
+    # checks ---------------------------------------------------------------
+    t0 = time.perf_counter()
+    bad = [k for k, i in row.items() if c2.get(k) != values[i].tobytes()]
+    if bad:
+        fail(f"cluster: {len(bad)} keys do not read back their last "
+             f"committed value (first {bad[:5]})")
+    differ = [pid for pid, img in kept.items() if
+              c2.engine(goal[c2.range_of(pid * rpp)]).durable_page_image(pid)
+              .tobytes() != img]
+    if differ:
+        fail(f"cluster: {len(differ)} moved pages' durable images differ "
+             f"from their images before the move (first {differ[:5]})")
+    print(f"cluster: {len(row)} written keys read back their last committed "
+          f"values; {len(kept)} moved pages' durable images equal on their "
+          f"new owners, byte for byte ({time.perf_counter() - t0:.2f} s)",
+          flush=True)
+    want = copied + len(rep2.ranges_moved)
+    print(f"cluster: apply_unpack launches expected {want}: {copied} ranges "
+          f"copied before the cut + {len(rep2.ranges_moved)} moved by the "
+          f"resume", flush=True)
+    return {"expected": want, "reshard_s": t_reshard, "resume_s": t_resume}
+
+
 # --------------------------------------------------------------------- main
 
 def main() -> int:
@@ -1246,6 +1608,9 @@ def main() -> int:
     ap.add_argument("--serve-layers", type=int, default=22,
                     help="decoder depth of the serve path (22 is the whole "
                          "model)")
+    ap.add_argument("--cluster-pages", type=int, default=CLUSTER_PAGES,
+                    help="the cluster path's key space in 4 KiB pages (a "
+                         "multiple of 64: 64 ranges)")
     args = ap.parse_args()
 
     import torch
@@ -1287,13 +1652,17 @@ def main() -> int:
                             "AdamW (37 leaves with the moments), batch 8 x "
                             "seq 512",
             "trainer layers": f"{args.train_layers} of 22",
-            "serve path": serve_sizes(args.serve_layers)}
+            "serve path": serve_sizes(args.serve_layers),
+            "cluster path": cluster_sizes(args.cluster_pages)}
     print("reduced: " + json.dumps(cuts), flush=True)
 
     # 2. kernels --------------------------------------------------------
     state = init_state(TINYLLAMA_1_1B_PARAMS, seed=args.seed, device=DEV,
                        layers=args.layers)
     rows = kernel_phase(state, args.seed)
+    ppr = args.cluster_pages // 64
+    migration = migration_cases(args.seed, ((BLOCK, ppr), (BLOCK, 1024),
+                                            (512, 1024)))
     torch.cuda.empty_cache()
 
     # 3. main path ------------------------------------------------------
@@ -1376,6 +1745,16 @@ def main() -> int:
                                                    args.serve_layers))
     print(f"serve path: {time.perf_counter() - t0:.1f} s", flush=True)
     check_launches("serve path", serve_launches, (), tuple(wrappers))
+    t0 = time.perf_counter()
+    cluster_launches, cluster = counted(lambda: cluster_path(
+        args.seed, args.cluster_pages, rate))
+    print(f"cluster path: {time.perf_counter() - t0:.1f} s", flush=True)
+    check_launches("cluster path", cluster_launches, ("apply_unpack",),
+                   tuple(k for k in wrappers if k != "apply_unpack"))
+    if cluster_launches["apply_unpack"] != cluster["expected"]:
+        fail(f"the cluster path launched apply_unpack "
+             f"{cluster_launches['apply_unpack']} times, expected "
+             f"{cluster['expected']} (one per range copied)")
 
     # report ------------------------------------------------------------
     replaces = {
@@ -1399,6 +1778,14 @@ def main() -> int:
         "bound_by": rows[name]["bound_by"],
         "library_ms": rows[name]["library_ms"],
     } for name in replaces]
+    print(json.dumps({"cluster_path": dict(
+        name="apply_unpack", route="cuda",
+        source="src/repro_torch/kernels/csrc/apply_unpack.cu",
+        replaces=replaces["apply_unpack"],
+        launches=cluster_launches["apply_unpack"],
+        expected_launches=cluster["expected"],
+        reshard_s=cluster["reshard_s"], resume_s=cluster["resume_s"],
+        **migration)}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

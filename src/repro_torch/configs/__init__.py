@@ -37,12 +37,12 @@ ALIASES: Dict[str, str] = {
 #: architectures of the JAX package not ported yet, with what they wait for
 #: and the items of ROADMAP.md §1 that port it
 _NOT_PORTED: Dict[str, str] = {
-    "recurrentgemma_9b": "RG-LRU blocks and windowed attention (items 5, 4)",
-    "phi35_moe_42b": "the MoE family (item 5)",
-    "deepseek_v2_236b": "MLA attention and the MoE family (item 5)",
-    "mamba2_130m": "the Mamba2 SSD family (item 5)",
-    "qwen2_vl_7b": "M-RoPE and the vision frontend (item 5)",
-    "whisper_large_v3": "the encoder and cross-attention (items 5, 4)",
+    "recurrentgemma_9b": "RG-LRU blocks and windowed attention (items 2, 1)",
+    "phi35_moe_42b": "the MoE family (item 2)",
+    "deepseek_v2_236b": "MLA attention and the MoE family (item 2)",
+    "mamba2_130m": "the Mamba2 SSD family (item 2)",
+    "qwen2_vl_7b": "M-RoPE and the vision frontend (item 2)",
+    "whisper_large_v3": "the encoder and cross-attention (items 2, 1)",
 }
 
 

@@ -1,7 +1,6 @@
-"""The paper's primary contribution: PMem I/O primitives (numpy only).
+"""The paper's primary contribution: PMem I/O primitives.
 
-The port's own copy of ``repro.core``, less the KV engine
-(``repro.core.recovery``), which the checkpoint path does not reach.
+The port's own copy of ``repro.core``.
 
 The public entry point for *consuming* these primitives is
 :class:`repro_torch.pool.Pool` — a PMDK-style pool with a durable region
@@ -14,6 +13,8 @@ directory and uniform named handles (``pool.log`` / ``pool.pages`` /
   entry commits, pvn-style max-generation validity) under the pool
 - :mod:`repro_torch.core.log`       — Classic / Header(±dancing) / Zero logging
 - :mod:`repro_torch.core.pageflush` — CoW(+pvn) / µLog / Hybrid page flushing
+- :mod:`repro_torch.core.recovery`  — minimal buffer-managed KV engine (YCSB
+  validation target), built on the pool
 - :mod:`repro_torch.core.costmodel` — counts → time, calibrated to the paper
   (incl. ``engine_time_ns``: lane-concurrent wall-clock for
   :mod:`repro_torch.io`, the lane-partitioned I/O engine built on all of this)
@@ -63,4 +64,5 @@ from repro_torch.core.pageflush import (  # noqa: F401
 )
 from repro_torch.core.persist import AccessPattern, FlushKind, INVALID_PID  # noqa: F401
 from repro_torch.core.pmem import CrashImage, PMem, PMemStats  # noqa: F401
+from repro_torch.core.recovery import KVConfig, PersistentKV  # noqa: F401
 from repro_torch.core.ssd import SSD, SSDStats  # noqa: F401

@@ -232,7 +232,7 @@ class PMemCostModel:
 
     def cluster_transfer_ns(self, nbytes: int) -> float:
         """Modeled wall-clock of moving ``nbytes`` between shards during a
-        view change (repro.cluster).
+        view change (repro_torch.cluster).
 
         A migration streams page images and WAL records from the source
         engine's pool into the target's over the interconnect. The bytes
@@ -469,7 +469,7 @@ class PMemCostModel:
         scan has classified it.
 
         ``cluster_transfer_bytes`` is cross-shard migration traffic
-        received during the window (repro.cluster view changes), charged
+        received during the window (repro_torch.cluster view changes), charged
         at :meth:`cluster_transfer_ns` and likewise serialized — the
         engine cannot acknowledge a migrated range before its bytes have
         landed.

@@ -1,7 +1,6 @@
 """``repro_torch.io`` — lane-partitioned concurrent I/O engine.
 
-The port's own copy of ``repro.io``, less the ``IOEngine`` facade
-(``repro.io.engine``), which the checkpoint path does not reach.
+The port's own copy of ``repro.io``.
 
 The paper's headline results are concurrency results: bandwidth scales
 with writer threads until the device's write-combining buffer is defeated
@@ -23,6 +22,10 @@ batches and barriers":
   is also the sole write-back path of the DRAM buffer manager
   (:class:`~repro_torch.cache.BufferManager`): dirty frames drain as one
   epoch, clock-evicted dirty frames park in the pending set.
+- :mod:`repro_torch.io.engine`   — :class:`IOEngine`: facade allocating
+  non-overlapping lane ids and converting per-lane op counts to modeled
+  wall-clock (``costmodel.engine_time_ns``: max over lanes, Fig. 2
+  concurrency curve, write-combining-defeat penalty).
 - :mod:`repro_torch.io.placer`   — :class:`LanePlacer`: NUMA-aware lane
   placement — spreads new lane regions over the sockets, runs each lane
   on a CPU socket near its region (falling back to remote sockets only
@@ -36,6 +39,7 @@ epoch), ``PersistentKV`` (checkpoint flushing with ``flush_lanes``), and
 ``AsyncFlusher`` (one worker lane per checkpoint shard).
 """
 
+from repro_torch.io.engine import IOEngine  # noqa: F401
 from repro_torch.io.flushq import EpochReport, FlushQueue  # noqa: F401
 from repro_torch.io.multilog import MultiLog, MultiLogRecovered  # noqa: F401
 from repro_torch.io.placer import LanePlacer  # noqa: F401

@@ -784,12 +784,14 @@ class Pool:
 
     # --------------------------------------------------- typed consumers
 
-    def kv(self, name: str, cfg=None):
-        """The KV engine (``repro.core.recovery.PersistentKV``) is not
-        ported yet (ROADMAP.md, queue 1, item 1)."""
-        raise NotImplementedError(
-            "Pool.kv: PersistentKV is not ported to repro_torch yet "
-            "(ROADMAP.md, queue 1, item 1)")
+    def kv(self, name: str, cfg=None, *, cost_model=None):
+        """Open-or-create a :class:`~repro_torch.core.recovery.PersistentKV`
+        whose root / page slots / WAL are directory regions ``<name>.root``
+        / ``<name>.pages`` / ``<name>.wal``. ``cost_model`` prices a
+        reopen's WAL replay (default: the module's, with no device rate)."""
+        from repro_torch.core.recovery import COST_MODEL, KVConfig, PersistentKV
+        return PersistentKV(self, cfg or KVConfig(), name=name,
+                            cost_model=cost_model or COST_MODEL)
 
     def wal(self, name: str = "train_wal", *,
             capacity_steps: Optional[int] = None,

@@ -22,6 +22,7 @@ from repro.models import init_params
 from repro.persistence.checkpoint import CheckpointConfig as JaxConfig
 from repro.persistence.checkpoint import CheckpointManager as JaxManager
 from repro_torch.core.costmodel import COST_MODEL, PMemCostModel
+from repro_torch.core.recovery import KVConfig, PersistentKV
 from repro_torch.core.pmem import PMemStats
 from repro_torch.core.ssd import SSD
 from repro_torch.persistence import (
@@ -258,6 +259,9 @@ def test_manager_device_rules(tmp_path):
     m = port_manager(None, cfg)
     with pytest.raises(TypeError):
         m.save(0, make_state(0))          # numpy leaves are refused
-    with pytest.raises(NotImplementedError, match="PersistentKV"):
-        Pool.create(None, 1 << 20).kv("kv")
+    kv = Pool.create(None, PersistentKV.region_bytes(KVConfig())).kv("kv")
+    assert isinstance(kv, PersistentKV)   # Pool.kv opens the port's engine
+    kv.put(0, bytes(64))
+    with pytest.raises(ValueError, match="no device read rate"):
+        Pool.open(pmem=kv.pmem).kv("kv")  # its WAL replay needs the rate
 

@@ -20,9 +20,14 @@ SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 
 COPIES = [
     "core/__init__", "core/blocks", "core/costmodel", "core/directory",
-    "core/log", "core/pageflush", "core/persist", "core/pmem", "core/ssd",
+    "core/log", "core/pageflush", "core/persist", "core/pmem",
+    "core/recovery", "core/ssd",
     "pool",
-    "io/__init__", "io/flushq", "io/multilog", "io/placer",
+    "io/__init__", "io/engine", "io/flushq", "io/multilog", "io/placer",
+    "cluster/__init__", "cluster/shardmap", "cluster/membership",
+    "cluster/router",
+    "serve/__init__", "serve/frontend", "serve/latency", "serve/workload",
+    "serve/modelstate",
     "cache/__init__", "cache/bufmgr",
     "tier/__init__", "tier/spill",
     "persistence/wal",
@@ -32,13 +37,15 @@ COPIES = [
     "configs/deepseek_coder_33b",
 ]
 
+#: why the KV engine, Pool.kv, the cluster and the front end take a cost
+#: model: the port's module model has no device read rate, and a reopen's
+#: WAL replay scan is charged at it, so the caller states the rate
+COST_KW = ("cost_model= keyword (default: the module's model): the WAL "
+           "replay is priced at the device read rate the caller states")
+
 #: module → [(a phrase of the hunk's changed lines, lines removed from
 #: the reference, lines added in the port, why)]
 DELIBERATE = {
-    "core/__init__": [
-        ("core.recovery import KVConfig, PersistentKV", 1, 0,
-         "PersistentKV is not ported yet (ROADMAP.md queue 1, item 1)"),
-    ],
     "core/costmodel": [
         ('"measure_copy_gbps"]', 1, 1, "exports measure_copy_gbps"),
         ("hbm_read_bw_gbps: float = dataclasses.field(kw_only=True)", 8, 9,
@@ -52,12 +59,57 @@ DELIBERATE = {
          "the device-memory rate measured on the card (timed copy)"),
     ],
     "pool": [
-        ("raise NotImplementedError(", 5, 5,
-         "Pool.kv refuses until PersistentKV is ported"),
+        ("def kv(self, name: str, cfg=None, *, cost_model=None):", 1, 1,
+         COST_KW),
+        ("cost_model=cost_model or COST_MODEL)", 3, 5, COST_KW),
     ],
-    "io/__init__": [
-        ("from repro_torch.io.engine import IOEngine", 1, 0,
-         "IOEngine is not ported yet (ROADMAP.md queue 1, item 1)"),
+    "core/recovery": [
+        ("COST_MODEL, PMemCostModel", 1, 1, COST_KW),
+        ("cost_model: PMemCostModel = COST_MODEL,", 0, 1, COST_KW),
+        ("self.cost_model = cost_model", 0, 2, COST_KW),
+        ("self.cost_model.engine_time_ns(", 1, 1,
+         "a reopen's WAL replay scan is priced with the caller's model"),
+        ('cost_model=cost_model,\n                   _recover=True)', 2, 4,
+         COST_KW),
+    ],
+    "cluster/router": [
+        ("import time", 0, 1, "times the migration copy's device round trip"),
+        ("import torch", 0, 1, "the migration copy runs on a torch device"),
+        ("COST_MODEL, SSD_COST_MODEL, PMemCostModel", 1, 1, COST_KW),
+        ("raise RuntimeError(", 2, 17,
+         "ClusterKV(device=, cost_model=): the copy's device (a card unless "
+         "the caller asks for the CPU; without a card 'cuda' raises), the "
+         "caller's cost model, and the host seconds of the device round "
+         "trip that the smoke's cluster path reports"),
+        ('cfg.kv, cost_model=cost_model)', 1, 1,
+         "each shard's engine prices its WAL replay with the caller's model"),
+        ('*, device="cuda",', 1, 2, "ClusterKV.open takes device and "
+         "cost_model as the constructor does"),
+        ("device=device,", 1, 2, "ClusterKV.open passes them on"),
+        ("ns = self.cost_model.engine_time_ns(pool.stats.delta(p0),", 1, 1,
+         "migration steps are priced with the caller's model"),
+        ("torch.from_numpy(", 1, 4,
+         "the range's images go to the device as one uint8 tensor (one "
+         "host-to-device copy; the upload is timed)"),
+        ("res = apply_unpack(torch.zeros(len(pids) * ps, dtype=torch.uint8,",
+         1, 3, "the port's apply_unpack on a zeroed base on the device: a "
+         "CUDA device launches the kernel, the CPU takes its plain version"),
+        ("out = res.out.cpu().numpy()", 1, 2,
+         "the landed bytes come back with one device-to-host copy"),
+        ('m["ns_meta"] += self.cost_model.engine_time_ns(', 1, 1,
+         "ownership flips are priced with the caller's model"),
+        ("vc.transfer_ns += self.cost_model.cluster_transfer_ns(", 1, 1,
+         "the interconnect term is priced with the caller's model"),
+    ],
+    "serve/frontend": [
+        ("COST_MODEL, SSD_COST_MODEL, PMemCostModel", 1, 1, COST_KW),
+        ("cost_model: PMemCostModel = COST_MODEL) -> None:", 1, 2, COST_KW),
+        ("cost_model: prices each batch", 0, 1, COST_KW),
+        ("self.cost_model = cost_model", 0, 1, COST_KW),
+        ("kv = pool.kv(spec.name, kv_cfg, cost_model=cost_model)", 1, 1,
+         "each tenant's engine prices its WAL replay with the caller's model"),
+        ("service = self.cost_model.engine_time_ns(", 1, 1,
+         "batches are priced with the caller's model"),
     ],
     "data/synthetic": [
         ("from typing import Dict", 1, 1, "Optional is unused"),

@@ -29,6 +29,14 @@ def test_persistence_imports_with_jax_and_repro_blocked():
         import repro_torch.launch.train
         import repro_torch.launch.serve
         import repro_torch.persistence.flusher
+        import repro_torch.core.recovery
+        import repro_torch.io.engine
+        import repro_torch.cluster
+        import repro_torch.serve
+        from repro_torch.core import KVConfig, PersistentKV
+        from repro_torch.io import IOEngine
+        from repro_torch.cluster import ClusterKV
+        from repro_torch.serve import ModelStateStore, ServeFrontend
         from repro_torch.configs import get_config
         from repro_torch.models import init_params
         init_params(get_config("tinyllama-1.1b"), device="meta")
