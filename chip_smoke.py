@@ -5,6 +5,7 @@ Run from the repository root:
 
     python3 chip_smoke.py [--seed 0] [--layers 22] [--train-layers 2]
                           [--serve-layers 22] [--cluster-pages 32768]
+                          [--hybrid-serve-layers 8]
 
 Phases (any failure exits non-zero):
 
@@ -78,8 +79,39 @@ Phases (any failure exits non-zero):
    reshard's and the resume's times and reports, and the host seconds of
    the migration copies with their device round trips.
 
+9. attention phase — the port's routes on the card at full head widths,
+   4,096 tokens: ``_attend_flash`` (tinyllama-1.1b's 32 heads, 4 KV, hd
+   64) against the masked dense path, forward and gradients, timed beside
+   ``scaled_dot_product_attention``; ``build_prefill_step`` on all 22
+   layers of tinyllama-1.1b over a 4,096-token prompt through flash
+   against the same step with the dense route forced; the chunked band
+   (recurrentgemma-9b's 16 heads, 1 KV, hd 256, window 2,048) against the
+   windowed masked path, forward and gradients; qwen2-vl-7b at full
+   width, 2 layers, with patch embeddings and distinct t/h/w ids, card
+   against CPU. Its own counts: all seven 0.
+10. hybrid serve path — ``serve_batch`` on recurrentgemma-9b at full
+   width, ``--hybrid-serve-layers`` deep (8 of 38: two units and the
+   tail segment), batch 4 x
+   prompt 2,048 (the window: the rings wrap at the first generated
+   token) + 64 generated; the decode's logits at every position against
+   one forward over the 2,112 tokens (the masked windowed route); two
+   decode steps from the caches copied after the wrap, card against CPU;
+   timed and profiled decode steps after the wrap. Its own counts: all
+   seven 0.
+11. hybrid train steps — ``Trainer`` on recurrentgemma-9b at full width,
+   3 layers deep, batch 1 x seq 4,096 (the band route,
+   remat), no checkpoint; on 128 tokens the card's gradients (the float32
+   ``lam`` among them) and one AdamW update against the CPU's. Counts:
+   all seven 0.
+12. hybrid trainer path — the trainer path's run, crash, restore and
+   resume on the reduced hybrid at 5 layers (its tail segment included),
+   batch 8 x seq 128 (the band route). Its own counts must equal the
+   prediction from its 190 leaves: popcnt_checksum 190, flush_pack 570,
+   apply_unpack 380, the rest 0.
+
 The last line is ``{"ok": true, "device": {...}}``; before it come the
-card's name and power limit, one ``{"cluster_path": {...}}`` line (the
+card's name and power limit, one ``{"attention": {...}}`` line (the
+attention phase's times), one ``{"cluster_path": {...}}`` line (the
 cluster path's apply_unpack launches beside the kernel's time at the
 migration's shape) and one ``{"kernels": [...]}`` line, whose
 ``launches`` are each kernel's CUDA launches on the path it serves
@@ -878,11 +910,12 @@ def delta_round_trip(seed: int, layers: int) -> None:
 
 
 def trainer_path(seed: int, layers: int, rate_gbps: float, tmp: str, *,
-                 batch: int = 8, seq: int = 512,
-                 reduced: bool = False) -> int:
+                 batch: int = 8, seq: int = 512, reduced: bool = False,
+                 arch: str = "tinyllama-1.1b") -> int:
     """The trainer through ``repro_torch.launch.train.Trainer`` at
-    tinyllama-1.1b's full width and ``layers`` of its depth (``reduced``
-    takes the small CPU test configuration instead, for a rehearsal):
+    ``arch``'s full width and ``layers`` of its depth (``reduced`` takes
+    the small test configuration instead: the hybrid trainer path's, or a
+    CPU rehearsal's):
 
     1. run 1 trains steps 0-2, saves at step 2 (its first save: one
        popcnt_checksum a leaf), and crashes at step 3, the WAL at step 3;
@@ -908,7 +941,7 @@ def trainer_path(seed: int, layers: int, rate_gbps: float, tmp: str, *,
 
     cm = PMemCostModel(hbm_read_bw_gbps=rate_gbps)
     out = os.path.join(tmp, "train")
-    tc = dict(arch="tinyllama-1.1b", reduced=reduced, layers=layers,
+    tc = dict(arch=arch, reduced=reduced, layers=layers,
               steps=4, ckpt_every=2, batch=batch, seq=seq, out=out,
               device=DEV, manifest_capacity=MANIFEST, seed=seed)
     step_s, saves = [], []
@@ -1321,6 +1354,481 @@ def serve_path(seed: int, layers: int, *, batch: int = SERVE_BATCH,
         fail("the card's caches disagree with the CPU's")
 
 
+# --------------------------------------------------------------- attention
+
+#: the attention phase's sequence length, and its head shapes:
+#: tinyllama-1.1b's for the flash route, recurrentgemma-9b's for the band
+ATTN_SEQ = 4096
+FLASH_HEADS = dict(H=32, KV=4, hd=64)
+BAND_HEADS = dict(H=16, KV=1, hd=256, window=2048)
+
+
+def _route_check(name: str, route, q, k, v, window: int, gen) -> tuple:
+    """``route(q, k, v)`` against the port's masked dense path on the same
+    inputs: the outputs within 4 bf16 ulps of the largest, and the
+    gradients of q, k and v under one seeded upstream gradient within 3e-2
+    relative L2 each. Returns ``(route ms, masked ms)`` (CUDA events,
+    forward only)."""
+    import torch
+    from repro_torch.models import attention as att
+    S, hd = q.shape[1], q.shape[-1]
+    ar = torch.arange(S, device=q.device)
+    mask = ar[None, :] <= ar[:, None]
+    if window:
+        mask &= (ar[:, None] - ar[None, :]) < window
+    scale = 1.0 / math.sqrt(hd)
+    got = route(q, k, v)
+    want = att._attend(q, k, v, mask, scale)
+    up = torch.randn(got.shape, generator=gen, device=q.device).to(got.dtype)
+    rel = [float(torch.linalg.vector_norm((a - b).float())
+                 / torch.linalg.vector_norm(b.float()).clamp_min(1e-30))
+           for a, b in zip(torch.autograd.grad(got, (q, k, v), up),
+                           torch.autograd.grad(want, (q, k, v), up))]
+    top, lim = four_ulps(want.detach())
+    err = float((got.detach().float() - want.detach().float()).abs().max())
+    with torch.no_grad():
+        ms = cuda_ms(lambda: route(q, k, v), 5)
+        plain = cuda_ms(lambda: att._attend(q, k, v, mask, scale), 5)
+    print(f"attention: {name} against the masked path, q {tuple(q.shape)}: "
+          f"max |diff| {err!r} (largest {top!r}, limit 4 bf16 ulps = "
+          f"{lim!r}); gradients q, k, v relative L2 "
+          f"{json.dumps([round(r, 6) for r in rel])} (limit 3e-2); "
+          f"{ms:.4f} ms against the masked path's {plain:.4f} ms", flush=True)
+    if not err <= lim:
+        fail(f"the {name} route disagrees with the masked path")
+    if not max(rel) <= 3e-2:
+        fail(f"the {name} route's gradients disagree with the masked path's")
+    return ms, plain
+
+
+def attention_phase(seed: int, *, seq: int = ATTN_SEQ,
+                    prefill_layers: int = 22, mrope_layers: int = 2,
+                    reduced: bool = False) -> dict:
+    """The attention routes on the card (``reduced`` takes the small test
+    configurations and ``seq`` a short sequence, for a rehearsal):
+
+    1. flash at tinyllama-1.1b's heads (32, 4 KV, hd 64), B = 1 x ``seq``:
+       ``_attend_flash`` against the masked dense path, forward and
+       gradients; its time beside ``scaled_dot_product_attention``'s on
+       the same inputs (k and v repeated to the 32 heads);
+    2. ``build_prefill_step`` on tinyllama-1.1b at ``prefill_layers`` deep
+       over a ``seq``-token prompt: the flash route (every layer, counted)
+       against the same step with the dense route forced
+       (``FLASH_THRESHOLD`` raised), the last position's logits within 4
+       bf16 ulps of the largest and the same argmax;
+    3. the band at recurrentgemma-9b's heads (16, 1 KV, hd 256, window
+       2048) over ``seq`` tokens against the windowed masked path,
+       forward and gradients;
+    4. qwen2-vl-7b at full width, ``mrope_layers`` deep: a forward with
+       patch embeddings and distinct t/h/w ids, card against CPU within 4
+       bf16 ulps.
+
+    Returns the times for the report."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.data import synthetic_batch
+    from repro_torch.launch.steps import build_prefill_step
+    from repro_torch.models import attention as att
+    from repro_torch.models import forward, init_params
+    from repro_torch.persistence.state import flatten_state, unflatten_state
+
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+
+    def qkv(H, KV, hd):
+        G = H // KV
+        return [torch.randn(s, generator=gen, device=DEV).to(
+                    torch.bfloat16).requires_grad_(True)
+                for s in ((1, seq, KV, G, hd), (1, seq, KV, hd),
+                          (1, seq, KV, hd))]
+
+    # 1. flash --------------------------------------------------------------
+    H, KV, hd = FLASH_HEADS["H"], FLASH_HEADS["KV"], FLASH_HEADS["hd"]
+    q, k, v = qkv(H, KV, hd)
+    flash_ms, masked_ms = _route_check(
+        "flash", lambda q, k, v: att._attend_flash(
+            q, k, v, causal=True, scale=1.0 / math.sqrt(hd)), q, k, v, 0, gen)
+    with torch.no_grad():
+        qh = q.detach().reshape(1, seq, H, hd).transpose(1, 2)
+        kh, vh = (t.detach().transpose(1, 2).repeat_interleave(H // KV, 1)
+                  for t in (k, v))
+        sdpa = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True)
+        ours = att._attend_flash(q.detach(), k.detach(), v.detach(),
+                                 causal=True, scale=1.0 / math.sqrt(hd))
+        sdpa_err = float((sdpa.transpose(1, 2).float()
+                          - ours.reshape(1, seq, H, hd).float()).abs().max())
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True), 5)
+    print(f"attention: flash {flash_ms:.4f} ms, scaled_dot_product_attention "
+          f"{sdpa_ms:.4f} ms on the same inputs (bf16, causal; max |diff| "
+          f"{sdpa_err!r}); the masked path {masked_ms:.4f} ms", flush=True)
+    del q, k, v, qh, kh, vh, sdpa, ours
+
+    # 2. the prefill step through flash --------------------------------------
+    cfg = get_reduced("tinyllama-1.1b") if reduced else \
+        get_config("tinyllama-1.1b")
+    cfg = dataclasses.replace(cfg, num_layers=prefill_layers)
+    params = init_params(cfg, seed, device=DEV)
+    batch = {"tokens": torch.from_numpy(synthetic_batch(
+        cfg, 1, seq, cursor=0)["tokens"]).to(DEV)}
+    step = build_prefill_step(cfg)
+    calls = []
+    orig, threshold = att._attend_flash, att.FLASH_THRESHOLD
+    att._attend_flash = lambda *a, **kw: calls.append(1) or orig(*a, **kw)
+    try:
+        if reduced:
+            att.FLASH_THRESHOLD = seq // 2
+        flash = step(params, batch)
+        n_flash = len(calls)
+        prefill_ms = cuda_ms(lambda: step(params, batch), 2)
+        att.FLASH_THRESHOLD = seq       # the dense route, forced
+        calls.clear()
+        dense = step(params, batch)
+        dense_prefill_ms = cuda_ms(lambda: step(params, batch), 2)
+        n_dense = len(calls)
+    finally:
+        att._attend_flash, att.FLASH_THRESHOLD = orig, threshold
+    top, lim = four_ulps(dense)
+    err = float((flash.float() - dense.float()).abs().max())
+    same = bool(torch.equal(flash.argmax(-1), dense.argmax(-1)))
+    print(f"attention: build_prefill_step, {cfg.name} {prefill_layers} "
+          f"layers, {seq} tokens: flash in {n_flash} layers, "
+          f"{prefill_ms:.2f} ms; the dense route forced ({n_dense} flash "
+          f"calls) {dense_prefill_ms:.2f} ms; last logits max |diff| "
+          f"{err!r} (largest {top!r}, limit "
+          f"{lim!r}), argmax {'equal' if same else 'differs'}", flush=True)
+    if n_flash != prefill_layers or n_dense != 0:
+        fail(f"the prefill step took flash in {n_flash} layers (expected "
+             f"{prefill_layers}) and {n_dense} with the dense route forced")
+    if not (err <= lim and same):
+        fail("the prefill step through flash disagrees with the dense route")
+    del params, flash, dense
+    torch.cuda.empty_cache()
+
+    # 3. the band -----------------------------------------------------------
+    w = BAND_HEADS["window"] if not reduced else seq // 2
+    q, k, v = qkv(BAND_HEADS["H"], BAND_HEADS["KV"], BAND_HEADS["hd"])
+    band_ms, band_masked_ms = _route_check(
+        f"band (window {w})", lambda q, k, v: att._attend_band(
+            q, k, v, w, 1.0 / math.sqrt(q.shape[-1])), q, k, v, w, gen)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # 4. M-RoPE, card against CPU ---------------------------------------------
+    cfg = get_reduced("qwen2-vl-7b") if reduced else get_config("qwen2-vl-7b")
+    cfg = dataclasses.replace(cfg, num_layers=mrope_layers)
+    params = init_params(cfg, seed, device=DEV)
+    host = unflatten_state({k: t.cpu() for k, t in
+                            flatten_state(params).items()})
+    S, n_vis = 32, 8
+    g = torch.Generator().manual_seed(seed)
+    b = {"tokens": torch.from_numpy(synthetic_batch(cfg, 1, S, cursor=0)[
+             "tokens"]),
+         "vis_embeds": torch.randn((1, n_vis, cfg.d_model), generator=g),
+         "positions": torch.randint(0, 4 * S, (3, 1, S), generator=g,
+                                    dtype=torch.int32)}
+    if (b["positions"][0] == b["positions"][1]).all():
+        fail("the M-RoPE rows are not distinct")
+    with torch.inference_mode():
+        card, _ = forward(params, cfg, {k: t.to(DEV) for k, t in b.items()})
+        cpu, _ = forward(host, cfg, b)
+    top, lim = four_ulps(cpu)
+    err = float((card.cpu().float() - cpu.float()).abs().max())
+    print(f"attention: {cfg.name} (d_model {cfg.d_model}), {mrope_layers} "
+          f"layers, {S} "
+          f"tokens ({n_vis} patch embeddings, distinct t/h/w ids), card "
+          f"against CPU: max |diff| logit {err!r} (largest {top!r}, limit "
+          f"{lim!r})", flush=True)
+    if not err <= lim:
+        fail("the M-RoPE forward on the card disagrees with the CPU's")
+    del params, host
+    torch.cuda.empty_cache()
+    return {"flash_ms": flash_ms, "sdpa_ms": sdpa_ms, "masked_ms": masked_ms,
+            "prefill_ms": prefill_ms, "dense_prefill_ms": dense_prefill_ms,
+            "band_ms": band_ms, "band_masked_ms": band_masked_ms}
+
+
+# ------------------------------------------------------------ hybrid serve
+
+#: the hybrid serve path's batch, prompt (the window: the rings wrap at
+#: the first generated token) and generated tokens
+HYBRID_BATCH, HYBRID_PROMPT, HYBRID_GEN = 4, 2048, 64
+
+
+def hybrid_sizes(layers: int) -> str:
+    """What the hybrid serve path holds at ``layers`` of recurrentgemma-9b's
+    depth."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.persistence.state import flatten_state
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
+                              num_layers=layers)
+    leaves = flatten_state(init_params(cfg, device="meta"))
+    n = sum(t.numel() for t in leaves.values())
+    nbytes = sum(t.numel() * t.element_size() for t in leaves.values())
+    return (f"recurrentgemma-9b at full width, {layers} of 38 layers "
+            f"({[(s.pattern, s.repeat) for s in cfg.segments]}): {n} "
+            f"parameters, {nbytes} B (bf16, lam f32); batch {HYBRID_BATCH} x "
+            f"prompt {HYBRID_PROMPT} + {HYBRID_GEN} generated")
+
+
+def hybrid_serve_path(seed: int, layers: int, *, batch: int = HYBRID_BATCH,
+                      prompt: int = HYBRID_PROMPT, gen: int = HYBRID_GEN,
+                      timed_steps: int = 16, reduced: bool = False) -> dict:
+    """Serving the RG-LRU hybrid through ``repro_torch.launch.serve`` on
+    recurrentgemma-9b at full width, ``layers`` deep (``reduced``: the
+    small test configuration, for a rehearsal). ``prompt`` is the window,
+    so every generated token is decoded after the rings wrap.
+
+    1. ``serve_batch``: ``batch`` prompts from the synthetic pipeline,
+       ``gen`` greedy tokens in the vocabulary. Its ``decode_step`` is
+       wrapped to keep each step's last logits and, after position
+       ``prompt + 1``, a host copy of the caches (the wrapper calls the
+       port's own ``decode_step``);
+    2. those logits at every position against one ``forward`` over the
+       whole sequence on the card (``prompt + gen`` tokens, not a multiple
+       of the window: the masked windowed route), within 4 bf16 ulps of
+       the largest, and each generated token within 4 ulps of its
+       position's largest logit there;
+    3. the model on the card and on the CPU, each from the host copy of
+       the caches: two decode steps (positions ``prompt + 2`` and ``+
+       3``), logits and every cache and state leaf within 16 bf16 ulps
+       of their largest;
+    4. ``timed_steps`` decode steps from the copied caches at full depth,
+       each timed after ``torch.cuda.synchronize``, then
+       ``decode_profile``."""
+    import statistics
+    import torch
+    import repro_torch.launch.serve as serve_mod
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import decode_step, forward, init_params
+    from repro_torch.persistence.state import flatten_state, unflatten_state
+
+    cfg = get_reduced("recurrentgemma-9b") if reduced else \
+        get_config("recurrentgemma-9b")
+    cfg = dataclasses.replace(cfg, num_layers=layers)
+    if prompt != cfg.window:
+        fail(f"the hybrid serve path's prompt {prompt} is not the window "
+             f"{cfg.window}")
+    params = init_params(cfg, seed, device=DEV)
+    prompts = torch.from_numpy(
+        synthetic_batch(cfg, batch, prompt, cursor=0)["tokens"]).to(DEV)
+
+    # 1. the entry point, its decode steps recorded ---------------------------
+    n = prompt + gen
+    V = cfg.padded_vocab
+    dec = torch.empty((batch, n, V), dtype=torch.bfloat16, device=DEV)
+    snap = {}
+    step = serve_mod.decode_step
+
+    def recording(p, c, tokens, caches, pos, extras=None):
+        logits, caches = step(p, c, tokens, caches, pos, extras)
+        dec[:, pos] = logits[:, -1]
+        if pos == prompt + 1:
+            snap.update({k: t.cpu() for k, t in
+                         flatten_state(caches).items()})
+        return logits, caches
+
+    serve_mod.decode_step = recording
+    try:
+        toks, tps = serve_mod.serve_batch(cfg, params, prompts, gen)
+    finally:
+        serve_mod.decode_step = step
+    if tuple(toks.shape) != (batch, gen) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab_size:
+        fail(f"serve_batch gave {tuple(toks.shape)} tokens in "
+             f"[{int(toks.min())}, {int(toks.max())}], vocabulary "
+             f"{cfg.vocab_size}")
+    ring = snap["seg0/b2/k"].shape[2]
+    print(f"hybrid serve: serve_batch {batch} x ({prompt} prompt + {gen} "
+          f"generated) on {layers} layers, rings of {ring} slots (window "
+          f"{cfg.window}), {tps:.1f} tokens/s (B*(P+gen) over the wall "
+          f"time, the logits kept on the card each step); row 0 begins "
+          f"{toks[0, :8].tolist()}", flush=True)
+
+    # 2. the recorded decode against one full forward -------------------------
+    seq = torch.cat([prompts, prompts[:, -1:], toks[:, :-1]], dim=1)
+    err = [0.0, 0.0]           # before the wrap, after it
+    top = gap = 0.0
+    with torch.inference_mode():
+        for r in range(batch):
+            full, _ = forward(params, cfg, {"tokens": seq[r:r + 1]})
+            full = full[0]
+            d = (dec[r].float() - full.float()).abs().amax(dim=-1)
+            err = [max(err[0], float(d[:prompt].max())),
+                   max(err[1], float(d[prompt:].max()))]
+            top = max(top, float(full.float().abs().max()))
+            gl = full[prompt:].float()
+            best = gl.max(dim=-1).values
+            chosen = torch.gather(gl, -1, toks[r].long()[:, None])[:, 0]
+            glim = 4 * torch.exp2(torch.floor(torch.log2(best.abs())) - 7)
+            gap = max(gap, float(((best - chosen) / glim).max()))
+            del full, gl
+    # 8 ulps, not the dense serve path's 4: the recurrence and the scan
+    # sum in different orders, and the gap grows with depth (a CPU
+    # measurement at d_model 512: 1.75 ulps at 6 layers, 3.06 at 14; a
+    # fault of the ring would show after the wrap, not before it)
+    ulp = 2.0 ** (math.floor(math.log2(top)) - 7)
+    lim = 8 * ulp
+    print(f"hybrid serve: decode over {n} positions x {batch} rows (the "
+          f"rings wrapped at {prompt}) against forward over the whole "
+          f"sequence ({n} % {cfg.window} != 0: the masked route): max "
+          f"|decode - forward| logit {err[0]!r} before the wrap, {err[1]!r} "
+          f"after it ({err[0] / ulp:.2f} and {err[1] / ulp:.2f} bf16 ulps of "
+          f"the largest, {top!r}; limit 8 ulps = {lim!r}); generated tokens "
+          f"below their position's largest logit: worst {gap!r} of the "
+          f"limit (4 ulps)", flush=True)
+    if not max(err) <= lim:
+        fail("the hybrid's decode disagrees with its full forward")
+    if not gap <= 1:
+        fail("serve_batch's greedy tokens are not the forward's argmax")
+    del dec
+
+    # 3. two decode steps from the copied caches, card against CPU -----------
+    host = unflatten_state({k: t.cpu() for k, t in
+                            flatten_state(params).items()})
+    out = {}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for name, p, dev in (("card", params, DEV), ("cpu", host, "cpu")):
+            c = unflatten_state({k: t.to(dev, copy=True) for k, t in
+                                 snap.items()})
+            ls = []
+            for pos in (prompt + 2, prompt + 3):
+                logits, c = decode_step(p, cfg, seq[:, pos:pos + 1].to(dev),
+                                        c, pos)
+                ls.append(logits.cpu())
+            out[name] = (torch.cat(ls, dim=1),
+                         {k: t.cpu() for k, t in flatten_state(c).items()})
+    cpu_s = time.perf_counter() - t0
+    (cl, cc), (hl, hc) = out["card"], out["cpu"]
+    # 16 ulps: the card's and the host's matrix products sum in other
+    # orders, and the recurrent layers carry each flipped rounding on, so
+    # the gap grows with depth (on the card, NVIDIA H100 80GB HBM3, the
+    # first 8 layers gave 3.5 ulps of logits and 2.2 of caches, all 38
+    # layers 9.0 and 6.0); the relative L2 error is printed beside it
+    top, lim = four_ulps(hl)
+    lim *= 4
+    err = float((cl.float() - hl.float()).abs().max())
+    rel = float(torch.linalg.vector_norm((cl - hl).float())
+                / torch.linalg.vector_norm(hl.float()))
+    worst = []
+    for k in hc:
+        if k.endswith("/pos"):
+            if not torch.equal(cc[k], hc[k]):
+                fail(f"the card's ring {k} differs from the CPU's")
+            continue
+        ctop, clim = four_ulps(hc[k])
+        cerr = float((cc[k].float() - hc[k].float()).abs().max())
+        worst.append((cerr / (4 * clim), k, cerr, ctop, 4 * clim))
+    ratio, k, cerr, ctop, clim = max(worst)
+    print(f"hybrid serve: {layers} layers, 2 decode steps at positions "
+          f"{prompt + 2}-{prompt + 3} from the caches copied after "
+          f"{prompt + 1}, card against CPU ({cpu_s:.1f} s): max |diff| "
+          f"logit {err!r} (largest {top!r}, limit 16 bf16 ulps = {lim!r}; "
+          f"relative L2 {rel:.3e}); worst cache leaf {k}: {cerr!r} (largest "
+          f"{ctop!r}, limit 16 bf16 ulps = {clim!r})", flush=True)
+    if not err <= lim:
+        fail("the hybrid's decode logits on the card disagree with the CPU's")
+    if not ratio <= 1:
+        fail("the hybrid's caches on the card disagree with the CPU's")
+    del host, out
+
+    # 4. decode steps after the wrap, timed and profiled ----------------------
+    caches = unflatten_state({k: t.to(DEV) for k, t in snap.items()})
+    step_s = []
+    with torch.inference_mode():
+        for i in range(timed_steps):
+            pos = prompt + 2 + i
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode_step(params, cfg, seq[:, pos:pos + 1], caches, pos)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+    med = statistics.median(step_s[1:])
+    print(f"hybrid serve: decode step ({batch} rows, after the wrap) wall s "
+          f"median {med:.6f} of {timed_steps - 1} after the first "
+          f"({step_s[0]:.4f}), min {min(step_s):.6f}, max {max(step_s):.6f}; "
+          f"{batch / med:.1f} tokens/s (after torch.cuda.synchronize())",
+          flush=True)
+    decode_profile(params, cfg, seq[:, -1:], caches, n - 1, med)
+    del params, caches
+    torch.cuda.empty_cache()
+    return {"decode_median_s": med, "serve_tokens_per_s": tps}
+
+
+# ------------------------------------------------------------ hybrid train
+
+#: the full-width train steps' depth: 3,410,141,184 B of parameters and
+#: 13,640,499,204 B of AdamW state, and the CPU's backward pass on 128
+#: tokens at that width (the host's bf16 products) sets the time
+HYBRID_TRAIN_LAYERS = 3
+
+def hybrid_train_steps(seed: int, layers: int, rate_gbps: float, tmp: str, *,
+                       batch: int = 1, seq: int = 4096, steps: int = 3,
+                       reduced: bool = False) -> None:
+    """``Trainer`` on recurrentgemma-9b at full width, ``layers`` deep,
+    ``batch`` x ``seq`` (``seq`` > the window and a multiple of it: the
+    band route, forward and backward, with ``remat=True``), ``steps``
+    steps and no checkpoint; each step timed. Then, on batch 0's first
+    row, first 128 tokens, the per-leaf gradients and one AdamW update
+    against the CPU's (``backward_and_adamw``), the float32 ``lam`` among
+    them."""
+    import statistics
+    import torch
+    from repro_torch.core.costmodel import PMemCostModel
+    from repro_torch.launch.train import Trainer, TrainerConfig
+    from repro_torch.persistence.state import flatten_state, unflatten_state
+
+    t = Trainer(TrainerConfig(
+        arch="recurrentgemma-9b", reduced=reduced, layers=layers,
+        steps=steps, ckpt_every=steps + 1, batch=batch, seq=seq,
+        out=os.path.join(tmp, "hybrid_steps"), device=DEV, seed=seed,
+        async_flush=False), cost_model=PMemCostModel(
+            hbm_read_bw_gbps=rate_gbps))
+    cfg = t.cfg
+    if not (seq > cfg.window and seq % cfg.window == 0):
+        fail(f"seq {seq} does not take the band route (window {cfg.window})")
+    leaves = t._ckpt_state()
+    nbytes = sum(v.numel() * v.element_size() for v in leaves.values())
+    step_fn, step_s = t.step_fn, []
+
+    def timed(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = step_fn(*a)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return res
+
+    t.step_fn = timed
+    torch.cuda.reset_peak_memory_stats()
+    losses = t.run()["losses"]
+    peak = torch.cuda.max_memory_allocated()
+    print(f"hybrid train: {cfg.name} {layers} layers "
+          f"({[(s.pattern, s.repeat) for s in cfg.segments]}), {len(leaves)} "
+          f"leaves, {nbytes} B of parameters and AdamW state; batch {batch} x "
+          f"seq {seq} (band route, remat); losses {losses!r} (ln "
+          f"{cfg.vocab_size} = {math.log(cfg.vocab_size):.4f}); step wall s "
+          f"{json.dumps([round(x, 4) for x in step_s])}, "
+          f"{batch * seq / statistics.median(step_s[1:] or step_s):.1f} "
+          f"tokens/s after the first; peak device memory {peak} B", flush=True)
+    if not all(math.isfinite(x) for x in losses) or len(losses) != steps:
+        fail(f"the hybrid's train steps gave {losses}")
+    # the tied head's logits have variance 0.02^2 * d_model at init
+    want = math.log(cfg.vocab_size) + 0.02 ** 2 * cfg.d_model / 2
+    if abs(losses[0] - want) > 1.0:
+        fail(f"first loss {losses[0]} is not within 1.0 of {want:.4f}")
+    b0 = t.pipeline.batch_at(0)
+    row = {k: torch.from_numpy(v[:1, :128]) for k, v in b0.items()}
+    host = unflatten_state({k: v.detach().cpu()
+                            for k, v in flatten_state(t.params).items()})
+    backward_and_adamw(t, cfg, row, host)
+    del t, host
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ cluster
 
 class ClusterCut(BaseException):
@@ -1611,6 +2119,11 @@ def main() -> int:
     ap.add_argument("--cluster-pages", type=int, default=CLUSTER_PAGES,
                     help="the cluster path's key space in 4 KiB pages (a "
                          "multiple of 64: 64 ranges)")
+    ap.add_argument("--hybrid-serve-layers", type=int, default=8,
+                    help="decoder depth of the hybrid serve path (8: two "
+                         "(rec, rec, attn) units and the (rec, rec) tail; "
+                         "recurrentgemma-9b has 38, which takes the path to "
+                         "133-247 s on an H100's host)")
     args = ap.parse_args()
 
     import torch
@@ -1653,7 +2166,19 @@ def main() -> int:
                             "seq 512",
             "trainer layers": f"{args.train_layers} of 22",
             "serve path": serve_sizes(args.serve_layers),
-            "cluster path": cluster_sizes(args.cluster_pages)}
+            "cluster path": cluster_sizes(args.cluster_pages),
+            "attention phase": f"B = 1 x {ATTN_SEQ} tokens at full head "
+                               f"widths; the prefill step on all 22 layers "
+                               f"of tinyllama-1.1b; qwen2-vl-7b at full "
+                               f"width, 2 of 28 layers, 32 tokens",
+            "hybrid serve path": hybrid_sizes(args.hybrid_serve_layers),
+            "hybrid train steps": f"recurrentgemma-9b at full width, "
+                                  f"{HYBRID_TRAIN_LAYERS} of 38 layers, "
+                                  f"batch 1 x seq 4096, 3 steps, no "
+                                  f"checkpoint",
+            "hybrid trainer path": "recurrentgemma-smoke (the reduced "
+                                   "configuration) at 5 layers, batch 8 x "
+                                   "seq 128"}
     print("reduced: " + json.dumps(cuts), flush=True)
 
     # 2. kernels --------------------------------------------------------
@@ -1755,6 +2280,44 @@ def main() -> int:
         fail(f"the cluster path launched apply_unpack "
              f"{cluster_launches['apply_unpack']} times, expected "
              f"{cluster['expected']} (one per range copied)")
+
+    # the attention routes, the hybrid and M-RoPE ------------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    attn_launches, attn = counted(lambda: attention_phase(args.seed))
+    print(f"attention phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    check_launches("attention phase", attn_launches, (), tuple(wrappers))
+    t0 = time.perf_counter()
+    hserve_launches, _ = counted(lambda: hybrid_serve_path(
+        args.seed, args.hybrid_serve_layers))
+    print(f"hybrid serve path: {time.perf_counter() - t0:.1f} s", flush=True)
+    check_launches("hybrid serve path", hserve_launches, (), tuple(wrappers))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_hybrid_") as tmp:
+        t0 = time.perf_counter()
+        hsteps_launches, _ = counted(lambda: hybrid_train_steps(
+            args.seed, HYBRID_TRAIN_LAYERS, rate, tmp))
+        print(f"hybrid train steps: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        check_launches("hybrid train steps", hsteps_launches, (),
+                       tuple(wrappers))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        htrain_launches, hleaves = counted(lambda: trainer_path(
+            args.seed, 5, rate, tmp, batch=8, seq=128, reduced=True,
+            arch="recurrentgemma-9b"))
+        print(f"hybrid trainer path: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    check_launches("hybrid trainer path", htrain_launches,
+                   ("flush_pack", "popcnt_checksum", "apply_unpack"),
+                   ("dirty_diff",) + delta_chain)
+    # the same rule as the trainer path's, over the hybrid's 63 parameter
+    # and 127 optimizer leaves
+    hwant = {"popcnt_checksum": hleaves, "apply_unpack": 2 * hleaves,
+             "flush_pack": 3 * hleaves}
+    if hleaves != 190 or {k: htrain_launches[k] for k in hwant} != hwant:
+        fail(f"hybrid trainer path launches {htrain_launches}, predicted "
+             f"{hwant}")
+    print(json.dumps({"attention": attn}), flush=True)
 
     # report ------------------------------------------------------------
     replaces = {

@@ -1,6 +1,6 @@
 """The end-to-end training loop, the port of ``repro.launch.train``.
 
-Wires together the dense model, the synthetic resumable data pipeline,
+Wires together the model, the synthetic resumable data pipeline,
 AdamW, and the persistence stack: a Zero-log WAL committed every step
 (one durability barrier on the critical path), CoW/µLog delta
 checkpoints every ``ckpt_every`` steps (on a worker thread through

@@ -1,26 +1,38 @@
 """Grouped-query attention, the port of the GQA part of
-``repro.models.attention``: ``gqa_init``, ``gqa_cache_init``, the
-full-sequence path of ``gqa_apply`` (causal for the decoder,
-bidirectional when asked) and its cached (decode) path without a window.
+``repro.models.attention``: ``gqa_init``, ``gqa_cache_init`` and
+``gqa_apply``'s self-attention, full-sequence and cached.
 
 Heads are grouped as the reference groups them: q is viewed as
 ``(B, S, KV, G, hd)``, so q-head ``h = kv * G + g`` shares k/v head
 ``kv``. Scores are taken in the parameters' dtype and scaled in float32,
 masked with ``-1e30``, softmaxed in float32 and cast back to the values'
 dtype before the product with v, as ``repro.models.attention._attend``
-does.
+does. Rotary positions are ``(B, S)``, or ``(3, B, S)`` under M-RoPE.
+
+The full sequence takes the reference's routes, by its conditions:
+
+- with a window, ``S > window`` and ``S % window == 0``: the chunked band
+  (each window-sized query chunk against itself and the chunk before it,
+  the first chunk's "previous" keys zeros and masked; O(S·2w) scores);
+- without a window and ``S > FLASH_THRESHOLD``: :func:`_attend_flash`, an
+  online softmax in float32 over 1024-key chunks (a loop over the chunks;
+  the reference's is jnp, not Pallas);
+- otherwise the masked dense path, causal (``kpos <= qpos``, and
+  ``qpos - kpos < window`` with a window) or bidirectional.
 
 The cached path writes the new keys and values into the cache it is
 given, in place, and returns that same dict: the reference returns new
 arrays, but a copy of the whole cache per token is what a preallocated
 PyTorch cache avoids. It mirrors ``jax.lax.dynamic_update_slice``: the
-write starts at ``cache_pos`` clamped to ``[0, T - S]``, while RoPE and
-the mask (``arange(T) <= cache_pos``) take ``cache_pos`` as given.
+write starts at the slot (``cache_pos``, or ``cache_pos mod T`` in a
+window's ring buffer) clamped to ``[0, T - S]``. Without a window, RoPE
+and the mask (``arange(T) <= cache_pos``) take ``cache_pos`` as given.
+With one, the ring's ``pos`` leaf records, in place, the position written
+to the slot, and a slot is valid when ``0 <= cache_pos - pos < window``
+and ``pos >= 0``.
 
-Not ported yet, and refused rather than computed another way: sequences
-longer than ``FLASH_THRESHOLD`` (the reference's ``_attend_flash``),
-sliding-window attention (with or without a cache), cross attention,
-M-RoPE and MLA.
+Not ported, and refused rather than computed another way: cross attention
+(whisper's ``xattn`` blocks) and MLA.
 """
 
 from __future__ import annotations
@@ -30,12 +42,14 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models.layers import apply_rope, dense_init, rope_angles
+from repro_torch.models.layers import (apply_rope, dense_init, mrope_angles,
+                                       rope_angles)
 
 __all__ = ["FLASH_THRESHOLD", "gqa_apply", "gqa_cache_init", "gqa_init"]
 
-#: the reference switches to its chunked online-softmax path above this
-#: length; the port refuses such sequences until that path is ported
+#: without a window, full sequences longer than this take the chunked
+#: online softmax (:func:`_attend_flash`) instead of (S, S) scores; read
+#: at each call, so a test can lower it
 FLASH_THRESHOLD = 2048
 
 
@@ -57,6 +71,12 @@ def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
     return x.reshape(b, s, n, -1)
 
 
+def _rope_for(cfg, positions: torch.Tensor, hd: int):
+    if cfg.mrope_sections:
+        return mrope_angles(positions, hd, cfg.rope_theta, cfg.mrope_sections)
+    return rope_angles(positions, hd, cfg.rope_theta)
+
+
 def _attend(q, k, v, mask, scale):
     """q (B,S,KV,G,hd), k (B,T,KV,hd), v (B,T,KV,hv), mask broadcastable
     to (B,KV,G,S,T) → (B,S,KV,G,hv)."""
@@ -69,12 +89,78 @@ def _attend(q, k, v, mask, scale):
     return torch.matmul(probs, vh).permute(0, 3, 1, 2, 4)
 
 
+def _attend_flash(q, k, v, *, causal: bool, scale: float,
+                  k_chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over key chunks, in float32: q
+    (B,S,KV,G,hd), k (B,T,KV,hd), v (B,T,KV,hv) → (B,S,KV,G,hv) in v's
+    dtype. A loop over ``T / k_chunk`` chunks (one chunk of T when
+    ``k_chunk`` does not divide it); each keeps a running maximum, sum and
+    weighted value, rescaled when the maximum moves, so the scores held at
+    once are (S, k_chunk) a head."""
+    B, S, KV, G, hd = q.shape
+    T = k.shape[1]
+    hv = v.shape[-1]
+    k_chunk = min(k_chunk, T)
+    if T % k_chunk != 0:
+        k_chunk = T
+    qf = q.float().permute(0, 2, 3, 1, 4)           # B,KV,G,S,hd
+    qpos = torch.arange(S, device=q.device)[:, None]
+    m = torch.full((B, KV, G, S), -math.inf, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((B, KV, G, S), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, KV, G, S, hv), dtype=torch.float32, device=q.device)
+    for start in range(0, T, k_chunk):
+        stop = start + k_chunk
+        kc = k[:, start:stop].float().permute(0, 2, 3, 1)[:, :, None]
+        vc = v[:, start:stop].float().permute(0, 2, 1, 3)[:, :, None]
+        s = torch.matmul(qf, kc) * scale            # B,KV,G,S,k_chunk
+        if causal:
+            kpos = start + torch.arange(k_chunk, device=q.device)[None, :]
+            s = torch.where(kpos <= qpos, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.matmul(p, vc)
+        m = m_new
+    out = acc / torch.clamp_min(l[..., None], 1e-30)
+    return out.permute(0, 3, 1, 2, 4).to(v.dtype)
+
+
+def _attend_band(q, k, v, window: int, scale: float) -> torch.Tensor:
+    """The chunked band of a sliding window (``S % window == 0``): q
+    (B,S,KV,G,hd), k (B,S,KV,hd), v (B,S,KV,hv) → (B,S,KV,G,hv). Each of
+    the ``S / window`` query chunks attends to its own chunk and the one
+    before (zeros for the first, masked)."""
+    B, S, KV, G, hd = q.shape
+    nc = S // window
+    kc = k.reshape(B, nc, window, KV, hd)
+    vc = v.reshape(B, nc, window, KV, v.shape[-1])
+    kk = torch.cat([torch.cat([torch.zeros_like(kc[:, :1]), kc[:, :-1]], 1),
+                    kc], dim=2)                     # B,nc,2w,KV,hd
+    vv = torch.cat([torch.cat([torch.zeros_like(vc[:, :1]), vc[:, :-1]], 1),
+                    vc], dim=2)
+    qh = q.reshape(B, nc, window, KV, G, hd).permute(0, 1, 3, 4, 2, 5)
+    kh = kk.permute(0, 1, 3, 4, 2)[:, :, :, None]   # B,nc,KV,1,hd,2w
+    scores = torch.matmul(qh, kh).float() * scale   # B,nc,KV,G,w,2w
+    qpos = torch.arange(window, device=q.device)[:, None]
+    kpos = torch.arange(2 * window, device=q.device)[None, :] - window
+    band = (kpos <= qpos) & (qpos - kpos < window)
+    first = torch.arange(nc, device=q.device)[:, None, None] == 0
+    mask = torch.where(first, band & (kpos >= 0), band)      # nc,w,2w
+    scores = torch.where(mask[None, :, None, None], scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    vh = vv.permute(0, 1, 3, 2, 4)[:, :, :, None]   # B,nc,KV,1,2w,hv
+    out = torch.matmul(probs, vh)                   # B,nc,KV,G,w,hv
+    return out.permute(0, 1, 4, 2, 3, 5).reshape(B, S, KV, G, -1)
+
+
 def gqa_apply(
     p,
     x: torch.Tensor,
     *,
     cfg,
-    positions: torch.Tensor,             # (B,S)
+    positions: torch.Tensor,             # (B,S), or (3,B,S) for M-RoPE
     causal: bool = True,
     window: int = 0,
     cross: bool = False,
@@ -88,47 +174,51 @@ def gqa_apply(
     keys and values into it, and ``cache`` is the dict given, updated."""
     if cross or kv_input is not None:
         raise NotImplementedError("cross attention is not ported yet")
-    if window:
-        raise NotImplementedError("sliding-window attention is not ported "
-                                  "yet")
-    if cfg.mrope_sections:
-        raise NotImplementedError("M-RoPE is not ported yet")
     if (cache is None) != (cache_pos is None):
         raise NotImplementedError("attention with only one of cache and "
                                   "cache_pos is not ported")
-    cached = cache is not None
     B, S, D = x.shape
-    if S > FLASH_THRESHOLD and not cached:
-        raise NotImplementedError(
-            f"sequence length {S} > {FLASH_THRESHOLD}: the reference's "
-            f"chunked (flash) attention path is not ported yet")
     hd = cfg.raw_head_dim
     H, KV = cfg.padded_heads, cfg.padded_kv_heads
     G = H // KV
     scale = 1.0 / math.sqrt(hd)
-    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+    cos, sin = _rope_for(cfg, positions, hd)
     q = apply_rope(_split_heads(x @ p["wq"], H), cos, sin)
     k = apply_rope(_split_heads(x @ p["wk"], KV), cos, sin)
     v = _split_heads(x @ p["wv"], KV)
     qg = q.reshape(B, S, KV, G, hd)
-    if cached:
-        # decode: write the S new slots, attend to every slot <= cache_pos
+    if cache is not None:
+        # decode: write the S new slots, attend to the valid ones
         T = cache["k"].shape[1]
         if S > T:
             raise ValueError(f"{S} tokens do not fit a cache of {T} slots")
-        start = min(max(cache_pos, 0), T - S)
+        slot = cache_pos % T if window else cache_pos
+        start = min(max(slot, 0), T - S)
         ar = torch.arange(T, device=x.device)
         slots = ar[:S] + start
         cache["k"].index_copy_(1, slots, k)
         cache["v"].index_copy_(1, slots, v)
-        out = _attend(qg, cache["k"], cache["v"], ar <= cache_pos, scale)
+        if window:
+            cache["pos"][:, slot] = cache_pos
+            age = cache_pos - cache["pos"]
+            valid = (age >= 0) & (age < window) & (cache["pos"] >= 0)
+        else:
+            valid = ar <= cache_pos
+        out = _attend(qg, cache["k"], cache["v"], valid, scale)
         return out.reshape(B, S, H * hd) @ p["wo"], cache
-    if causal:
-        ar = torch.arange(S, device=x.device)
-        mask = ar[None, :] <= ar[:, None]
+    if window and S > window and S % window == 0:
+        out = _attend_band(qg, k, v, window, scale)
+    elif not window and S > FLASH_THRESHOLD:
+        out = _attend_flash(qg, k, v, causal=causal, scale=scale)
     else:
-        mask = torch.ones((S, S), dtype=torch.bool, device=x.device)
-    out = _attend(qg, k, v, mask, scale)
+        ar = torch.arange(S, device=x.device)
+        if causal:
+            mask = ar[None, :] <= ar[:, None]
+            if window:
+                mask &= (ar[:, None] - ar[None, :]) < window
+        else:
+            mask = torch.ones((S, S), dtype=torch.bool, device=x.device)
+        out = _attend(qg, k, v, mask, scale)
     return out.reshape(B, S, H * hd) @ p["wo"], {"k": k, "v": v}
 
 

@@ -13,14 +13,14 @@ matrix products in the parameters' dtype.
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 __all__ = ["apply_rope", "dense_init", "embed_apply", "embed_init",
-           "ffn_apply", "ffn_init", "rmsnorm", "rmsnorm_init", "rope_angles",
-           "softmax_xent", "unembed_apply"]
+           "ffn_apply", "ffn_init", "gelu_tanh", "mrope_angles", "rmsnorm",
+           "rmsnorm_init", "rope_angles", "softmax_xent", "unembed_apply"]
 
 
 def _randn(gen: Optional[torch.Generator], shape, device) -> torch.Tensor:
@@ -63,6 +63,30 @@ def rope_angles(positions: torch.Tensor, dim: int,
     return torch.cos(ang), torch.sin(ang)
 
 
+def mrope_angles(positions: torch.Tensor, dim: int, theta: float,
+                 sections: Sequence[int]) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Qwen2-VL M-RoPE. positions (3, B, S): temporal, height and width
+    ids. ``sections`` split the dim/2 frequency bands among the three, in
+    order, all cut from one float32 angle tensor over the three rows (text
+    tokens carry equal ids in all three, and then this is 1-D RoPE)."""
+    if not positions.shape[0] == len(sections) == 3:
+        raise ValueError(f"M-RoPE takes (3, B, S) positions and 3 sections, "
+                         f"not {tuple(positions.shape)} and {sections}")
+    half = dim // 2
+    if sum(sections) != half:
+        raise ValueError(f"sections {sections} do not sum to {half}")
+    freqs = torch.exp(-torch.arange(half, dtype=torch.float32,
+                                    device=positions.device)
+                      * (math.log(theta) / half))
+    ang_all = positions.float()[..., None] * freqs       # (3, B, S, half)
+    parts, start = [], 0
+    for i, sec in enumerate(sections):
+        parts.append(ang_all[i, ..., start:start + sec])
+        start += sec
+    ang = torch.cat(parts, dim=-1)                        # (B, S, half)
+    return torch.cos(ang), torch.sin(ang)
+
+
 def apply_rope(x: torch.Tensor, cos: torch.Tensor,
                sin: torch.Tensor) -> torch.Tensor:
     """x (..., H, hd) rotated by halves (the first half against the
@@ -91,17 +115,36 @@ def ffn_init(gen, d: int, f: int, dtype, kind: str = "swiglu", *, device,
     }
 
 
+def _const(dtype, v: float) -> float:
+    """``v`` rounded to ``dtype``, as JAX rounds a Python constant that
+    meets an array of that dtype."""
+    return float(torch.tensor(v, dtype=torch.float64).to(dtype))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """The tanh GELU that ``jax.nn.gelu`` defaults to,
+    ``x * (0.5 * (1 + tanh(c * (x + 0.044715 * x**3))))`` with ``c =
+    sqrt(2/pi)``, op by op in ``x``'s dtype: the constants are rounded to
+    that dtype and ``x**3`` is ``(x * x) * x``, each step rounded, as the
+    reference's optimized HLO computes it (``F.gelu(approximate="tanh")``
+    rounds once)."""
+    dt = x.dtype
+    inner = x + _const(dt, 0.044715) * (x * x * x)
+    cdf = 0.5 * (1.0 + torch.tanh(_const(dt, math.sqrt(2 / math.pi)) * inner))
+    return x * cdf
+
+
 def ffn_apply(p, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU (``silu(x @ gate) * (x @ up)``) or, without a gate, the tanh
-    GELU that ``jax.nn.gelu`` defaults to; then ``@ down``. The SiLU is
-    ``g * (1 / (1 + exp(-g)))`` op by op in ``g``'s dtype, the form XLA
-    lowers ``jax.nn.silu`` to, so each step rounds where the reference's
-    does (``F.silu`` rounds once)."""
+    """SwiGLU (``silu(x @ gate) * (x @ up)``) or, without a gate,
+    :func:`gelu_tanh`; then ``@ down``. The SiLU is ``g * (1 / (1 +
+    exp(-g)))`` op by op in ``g``'s dtype, the form XLA lowers
+    ``jax.nn.silu`` to, so each step rounds where the reference's does
+    (``F.silu`` rounds once)."""
     if "gate" in p:
         g = x @ p["gate"]
         h = g * (1 / (1 + torch.exp(-g))) * (x @ p["up"])
     else:
-        h = F.gelu(x @ p["up"], approximate="tanh")
+        h = gelu_tanh(x @ p["up"])
     return h @ p["down"]
 
 

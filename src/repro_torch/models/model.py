@@ -1,4 +1,4 @@
-"""The dense decoder, the port of ``repro.models.model``.
+"""The decoder, the port of ``repro.models.model``.
 
 Parameters keep the reference's tree: ``embed``, ``final_norm``, ``head``
 and ``decoder/seg<i>/b<j>/…``, each decoder leaf stacked over the
@@ -18,9 +18,13 @@ each leaf stacked over the segment's layers (:func:`init_caches`).
 layer's new keys and values into those tensors in place and return the
 same tree (the reference returns new arrays).
 
-Only ``"attn"`` blocks with GQA are ported (the dense family); other
-block kinds, MLA, windows, M-RoPE, encoders and frontends raise
-``NotImplementedError``.
+The block kinds ``"attn"`` (GQA, with the configuration's sliding
+window where it has one) and ``"rec"`` (the RG-LRU block) are ported:
+the dense family, the recurrentgemma hybrid (several segments; the
+recurrent state ``seg<i>/b<j>/{h, conv}`` is updated in place as the
+attention caches are) and the qwen2-vl language model with M-RoPE and the
+``vis_embeds`` stub. The other block kinds (MoE, SSD, cross attention),
+MLA and encoders raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from repro_torch.models.layers import (
     softmax_xent,
     unembed_apply,
 )
+from repro_torch.models.rglru import rec_apply, rec_init, rec_state_init
 from repro_torch.persistence.state import flatten_state
 
 __all__ = ["Model", "ParamTree", "apply_block", "apply_segment",
@@ -54,18 +59,21 @@ __all__ = ["Model", "ParamTree", "apply_block", "apply_segment",
 Params = Dict[str, Any]
 
 
+#: the block kinds this package builds
+_KINDS = ("attn", "rec")
+
+
 def _check_supported(cfg: ModelConfig) -> None:
     why = None
-    if cfg.family != "dense":
+    kinds = {k for seg in cfg.segments for k in seg.pattern}
+    if cfg.family not in ("dense", "hybrid", "vlm"):
         why = f"the {cfg.family} family"
     elif cfg.attn_kind != "gqa":
         why = f"{cfg.attn_kind} attention"
-    elif cfg.window:
-        why = "sliding-window attention"
-    elif cfg.mrope_sections:
-        why = "M-RoPE"
-    elif cfg.encoder_layers or cfg.frontend != "none":
-        why = "encoders and frontends"
+    elif not kinds <= set(_KINDS):
+        why = f"the block kinds {sorted(kinds - set(_KINDS))}"
+    elif cfg.encoder_layers or cfg.frontend not in ("none", "vision_patches"):
+        why = "encoders and the audio frontend"
     if why is not None:
         raise NotImplementedError(f"{cfg.name}: {why} is not ported to "
                                   f"repro_torch yet")
@@ -79,42 +87,73 @@ def _check_supported(cfg: ModelConfig) -> None:
 def init_block(gen, kind: str, cfg: ModelConfig, dtype, *, device,
                lead=()) -> Params:
     """One block's parameters, each leaf with the leading shape ``lead``."""
-    if kind != "attn":
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     D = cfg.d_model
     kw = dict(device=device, lead=lead)
-    return {"norm1": rmsnorm_init(D, dtype, **kw),
-            "attn": gqa_init(gen, cfg, dtype=dtype, **kw),
+    if kind == "attn":
+        mixer = {"attn": gqa_init(gen, cfg, dtype=dtype, **kw)}
+    elif kind == "rec":
+        mixer = {"rec": rec_init(gen, cfg, dtype=dtype, **kw)}
+    else:
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    return {"norm1": rmsnorm_init(D, dtype, **kw), **mixer,
             "norm2": rmsnorm_init(D, dtype, **kw),
             "ffn": ffn_init(gen, D, cfg.d_ff, dtype, cfg.ffn_kind, **kw)}
 
 
 def block_cache_init(kind: str, cfg: ModelConfig, batch: int, max_len: int,
                      dtype, enc_len: int = 0, *, device):
-    """One block's decode cache (``enc_len`` is for cross attention, which
-    is not ported)."""
-    if kind != "attn":
+    """One block's decode cache: ``{k, v, pos}`` of attention (a ring of
+    ``min(max_len, window)`` slots with a window), ``{h, conv}`` of the
+    recurrence (``enc_len`` is for cross attention, which is not
+    ported)."""
+    if kind == "attn":
+        return gqa_cache_init(cfg, batch, max_len, dtype, device=device)
+    if kind == "rec":
+        return rec_state_init(cfg, batch, dtype, device=device)
+    raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+
+
+def _block(kind: str, p, x: torch.Tensor, x32: Optional[torch.Tensor], *,
+           cfg: ModelConfig, positions: torch.Tensor, cache=None,
+           cache_pos=None, want32: bool = False):
+    """:func:`apply_block`, given beside ``x`` the float32 sum it was
+    rounded from (``x32``; None where there is none) and returning the
+    block's own float32 output sum when ``want32`` (else None)."""
+    eps = cfg.norm_eps
+    h = rmsnorm(x if x32 is None else x32, p["norm1"], eps).to(x.dtype)
+    if kind == "attn":
+        a, new_cache = gqa_apply(p["attn"], h, cfg=cfg, positions=positions,
+                                 causal=True, window=cfg.window, cache=cache,
+                                 cache_pos=cache_pos)
+    elif kind == "rec":
+        a, new_cache = rec_apply(p["rec"], h, cfg=cfg, state=cache)
+    else:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    return gqa_cache_init(cfg, batch, max_len, dtype, device=device)
+    s = x.float() + a.float()
+    x = s.to(a.dtype)
+    f = ffn_apply(p["ffn"], rmsnorm(s, p["norm2"], eps).to(a.dtype))
+    if not want32:
+        return x + f, None, new_cache
+    out = x.float() + f.float()
+    return out.to(a.dtype), out, new_cache
 
 
 def apply_block(kind: str, p, x: torch.Tensor, *, cfg: ModelConfig,
                 positions: torch.Tensor, cache=None, cache_pos=None):
-    """``(x after the block, its cache)``: the full sequence's
-    ``{"k", "v"}`` without ``cache``, else ``cache`` updated in place."""
-    if kind != "attn":
-        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
-    eps = cfg.norm_eps
-    a, new_cache = gqa_apply(p["attn"], rmsnorm(x, p["norm1"], eps), cfg=cfg,
-                             positions=positions, causal=True, cache=cache,
-                             cache_pos=cache_pos)
-    # XLA keeps the sum in float32 for the second norm (its default excess
-    # precision drops the round trip through bf16) and rounds it for the
-    # residual; the port does the same
-    s = x.float() + a.float()
-    x = s.to(a.dtype)
-    h = rmsnorm(s, p["norm2"], eps).to(a.dtype)
-    return x + ffn_apply(p["ffn"], h), new_cache
+    """``(x after the block, its cache)``: without ``cache``, the full
+    sequence's ``{"k", "v"}`` (attention) or final ``{"h", "conv"}``
+    (recurrence), else ``cache`` updated in place.
+
+    Each residual sum is rounded to the model's dtype, but a norm that
+    reads one reads the float32 sum, as XLA's compiled reference does (its
+    default excess precision drops the round trip through bf16): the
+    block's second norm reads ``x + mixer``, and in a unit of several
+    blocks (one layer of a segment) each later block's first norm reads
+    the float32 output of the block before (:func:`_unit`). The first
+    block of a unit reads the rounded carry."""
+    x, _, new_cache = _block(kind, p, x, None, cfg=cfg, positions=positions,
+                             cache=cache, cache_pos=cache_pos)
+    return x, new_cache
 
 
 def init_segment(gen, seg: Segment, cfg: ModelConfig, dtype, *,
@@ -144,10 +183,12 @@ def segment_cache_init(seg: Segment, cfg: ModelConfig, batch: int,
 
 
 def _unit(seg: Segment, lp, x, *, cfg, positions, lc=None, cache_pos=None):
+    x32 = None
     for i, kind in enumerate(seg.pattern):
         c = None if lc is None else lc[f"b{i}"]
-        x, _ = apply_block(kind, lp[f"b{i}"], x, cfg=cfg, positions=positions,
-                           cache=c, cache_pos=cache_pos)
+        x, x32, _ = _block(kind, lp[f"b{i}"], x, x32, cfg=cfg,
+                           positions=positions, cache=c, cache_pos=cache_pos,
+                           want32=i < len(seg.pattern) - 1)
     return x
 
 
@@ -205,9 +246,15 @@ def forward(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], *,
     """``(logits (B, S, padded vocab), caches)``. Without caches, over the
     full sequence, and ``caches`` is None. With ``caches`` (from
     :func:`init_caches`) and ``cache_pos`` (an int, read once on the host),
-    every token takes the rotary position ``cache_pos``, each layer writes
-    its keys and values into ``caches`` in place and attends to the slots
-    up to ``cache_pos``, and the updated ``caches`` are returned."""
+    every token takes the rotary position ``cache_pos`` (on all three
+    M-RoPE rows), each layer writes its keys and values or its recurrent
+    state into ``caches`` in place and attends to the valid slots, and the
+    updated ``caches`` are returned.
+
+    ``batch["vis_embeds"]`` (B, S_vis, D), where given, takes the place of
+    the first ``S_vis`` token embeddings (the vision frontend's stub);
+    ``batch["positions"]``, (B, S) or (3, B, S) under M-RoPE, replaces
+    ``arange(S)`` when there is no ``cache_pos``."""
     _check_supported(cfg)
     if (caches is None) != (cache_pos is None):
         raise NotImplementedError("forward with only one of caches and "
@@ -215,15 +262,22 @@ def forward(params, cfg: ModelConfig, batch: Mapping[str, torch.Tensor], *,
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = embed_apply(params["embed"], tokens)
+    if "vis_embeds" in batch:
+        ve = batch["vis_embeds"].to(x.dtype)
+        if ve.shape[1] > S:
+            raise ValueError(f"{ve.shape[1]} patch embeddings do not fit "
+                             f"{S} positions")
+        x = torch.cat([ve, x[:, ve.shape[1]:]], dim=1)
+    lead = (3, B, S) if cfg.mrope_sections else (B, S)
     if cache_pos is not None:
         cache_pos = int(cache_pos)
-        positions = torch.full((B, S), cache_pos, dtype=torch.int32,
+        positions = torch.full(lead, cache_pos, dtype=torch.int32,
                                device=tokens.device)
     else:
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32,
-                                     device=tokens.device)[None].expand(B, S)
+                                     device=tokens.device).expand(lead)
     for i, seg in enumerate(cfg.segments):
         c = None if caches is None else caches[f"seg{i}"]
         x, _ = apply_segment(seg, params["decoder"][f"seg{i}"], x, cfg=cfg,

@@ -34,7 +34,8 @@ COPIES = [
     "data/__init__", "data/synthetic",
     "models/config",
     "configs/tinyllama_1_1b", "configs/stablelm_12b", "configs/codeqwen15_7b",
-    "configs/deepseek_coder_33b",
+    "configs/deepseek_coder_33b", "configs/recurrentgemma_9b",
+    "configs/qwen2_vl_7b",
 ]
 
 #: why the KV engine, Pool.kv, the cluster and the front end take a cost

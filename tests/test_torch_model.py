@@ -7,6 +7,7 @@ function of a cursor. Both sides compute in bf16 with float32 norms,
 softmax and loss, so they differ by where bf16 rounds.
 """
 
+import dataclasses
 import math
 
 import jax
@@ -24,8 +25,7 @@ from repro.models import init_params as jax_init_params
 from repro.models import lm_loss as jax_lm_loss
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.models import Model, forward, init_params, lm_loss
-from repro_torch.models.attention import (FLASH_THRESHOLD, _attend, gqa_apply,
-                                          gqa_cache_init)
+from repro_torch.models.attention import _attend, gqa_apply
 from repro_torch.persistence.state import (TINYLLAMA_1_1B_PARAMS,
                                            flatten_state, trainer_state,
                                            unflatten_state)
@@ -170,7 +170,7 @@ def test_heads_group_as_the_reference_groups_them():
 
 
 @pytest.mark.parametrize("arch", ["mamba2-130m", "deepseek-v2-236b",
-                                  "qwen2-vl-7b", "whisper-large-v3"])
+                                  "phi3.5-moe-42b-a6.6b", "whisper-large-v3"])
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config(arch)
@@ -179,18 +179,18 @@ def test_unported_architectures_raise(arch):
 
 
 def test_unported_attention_paths_raise():
+    """Cross attention and MLA are refused; the flash and window routes
+    are tested in tests/test_torch_attention.py."""
     cfg = get_reduced(ARCH)
     p = flatten_state(init_params(cfg, 0, device="cpu"))
     attn = {k: p[f"decoder/seg0/b0/attn/{k}"][0]
             for k in ("wq", "wk", "wv", "wo")}
-    S = FLASH_THRESHOLD + 1
-    x = torch.zeros(1, S, cfg.d_model, dtype=torch.bfloat16)
-    pos = torch.arange(S)[None]
-    with pytest.raises(NotImplementedError, match="flash"):
-        gqa_apply(attn, x, cfg=cfg, positions=pos)
-    with pytest.raises(NotImplementedError, match="window"):
-        gqa_apply(attn, x[:, :4], cfg=cfg, positions=pos[:, :4], window=2)
-    cache = gqa_cache_init(cfg, 1, 4, torch.bfloat16, device="cpu")
-    with pytest.raises(NotImplementedError, match="window"):
-        gqa_apply(attn, x[:, :1], cfg=cfg, positions=pos[:, :1], window=2,
-                  cache=cache, cache_pos=0)
+    x = torch.zeros(1, 4, cfg.d_model, dtype=torch.bfloat16)
+    pos = torch.arange(4)[None]
+    with pytest.raises(NotImplementedError, match="cross attention"):
+        gqa_apply(attn, x, cfg=cfg, positions=pos, cross=True)
+    with pytest.raises(NotImplementedError, match="cross attention"):
+        gqa_apply(attn, x, cfg=cfg, positions=pos, kv_input=x)
+    mla = dataclasses.replace(cfg, attn_kind="mla")
+    with pytest.raises(NotImplementedError, match="mla attention"):
+        init_params(mla, 0, device="meta")
