@@ -5,7 +5,8 @@ Run from the repository root:
 
     python3 chip_smoke.py [--seed 0] [--layers 22] [--train-layers 2]
                           [--serve-layers 22] [--cluster-pages 32768]
-                          [--hybrid-serve-layers 8]
+                          [--hybrid-serve-layers 8] [--moe-serve-layers 4]
+                          [--mla-serve-layers 3]
 
 Phases (any failure exits non-zero):
 
@@ -88,7 +89,7 @@ Phases (any failure exits non-zero):
    (recurrentgemma-9b's 16 heads, 1 KV, hd 256, window 2,048) against the
    windowed masked path, forward and gradients; qwen2-vl-7b at full
    width, 2 layers, with patch embeddings and distinct t/h/w ids, card
-   against CPU. Its own counts: all seven 0.
+   against CPU; and MLA (phase 15 below). Its own counts: all seven 0.
 10. hybrid serve path — ``serve_batch`` on recurrentgemma-9b at full
    width, ``--hybrid-serve-layers`` deep (8 of 38: two units and the
    tail segment), batch 4 x
@@ -108,10 +109,48 @@ Phases (any failure exits non-zero):
    batch 8 x seq 128 (the band route). Its own counts must equal the
    prediction from its 190 leaves: popcnt_checksum 190, flush_pack 570,
    apply_unpack 380, the rest 0.
+13. MoE serve path — ``serve_batch`` on phi3.5-moe-42b-a6.6b at full
+   width, ``--moe-serve-layers`` deep (4 of 32: the whole model, 83.7 GB,
+   does not fit the card), batch 8 x prompt 512 + 128 generated, every
+   MoE layer's router logits and experts kept. A decode step routes 8
+   tokens under the capacity floor of 8 and drops nothing; a forward
+   over each row's 640 tokens with the capacity factor raised to E/k
+   drops nothing either, and takes the decode's routes (a near tie that
+   rounds the other way would move a token to another expert, and its
+   keys and values would reach every later position of its row): the
+   routes each side would choose are compared (the flips counted, each
+   decided by rounding), then every logit within 4 bf16 ulps of the
+   largest; two decode steps from the copied caches, card against CPU
+   at the same depth (the CPU on the card's routes; logits and caches);
+   timed and profiled decode steps beside the byte bound of every
+   parameter (3.26 ms at 4 layers). Its own counts: all seven 0.
+14. MLA serve path — the same on deepseek-v2-236b, ``--mla-serve-layers``
+   deep (3 of 60: the dense layer and 2 MoE layers of 160 routed top-6
+   experts and 2 shared; 18.66 GB): the absorbed decode against the
+   materialised forward. Its own counts: all seven 0.
+15. MLA in the attention phase — ``mla_apply`` at deepseek-v2-236b's full
+   widths (128 heads, q/k 192, v 128, q-LoRA 1,536, kv-LoRA 512) over 1
+   x 4,096 tokens through flash against the same call with the masked
+   route forced, forward and the gradients of x and every leaf; then its
+   attention alone, flash and the masked path beside
+   ``scaled_dot_product_attention``.
+16. MoE train steps — ``Trainer`` on phi3.5-moe-42b-a6.6b at full width,
+   2 of 32 layers, batch 8 x seq 512 (640 slots an expert: tokens are
+   dropped), 3 steps, no checkpoint; the peak device memory; on 128
+   tokens the card's gradients (the float32 router among them; the CPU
+   on the card's routes) and one AdamW update against the CPU's. Counts:
+   all seven 0.
+17. MLA + MoE trainer path — the trainer path's run, crash, restore and
+   resume on deepseek-v2-smoke (the reduced configuration) at its 3
+   layers, batch 8 x seq 128. Its own counts must equal the prediction
+   from its 94 leaves: popcnt_checksum 94, flush_pack 282, apply_unpack
+   188, the rest 0.
 
 The last line is ``{"ok": true, "device": {...}}``; before it come the
 card's name and power limit, one ``{"attention": {...}}`` line (the
-attention phase's times), one ``{"cluster_path": {...}}`` line (the
+attention phase's times, MLA's among them), one ``{"moe": {...}}`` line
+(the MoE and MLA serve paths' rates, decode medians, bounds and
+profiles), one ``{"cluster_path": {...}}`` line (the
 cluster path's apply_unpack launches beside the kernel's time at the
 migration's shape) and one ``{"kernels": [...]}`` line, whose
 ``launches`` are each kernel's CUDA launches on the path it serves
@@ -1068,12 +1107,20 @@ def trainer_path(seed: int, layers: int, rate_gbps: float, tmp: str, *,
     mask = row["labels"] >= 0
     labels = torch.clamp(row["labels"], min=0)
     with torch.no_grad():
-        card_logits, _ = forward(t2.params, cfg,
-                                 {k: v.to(DEV) for k, v in row.items()})
-        cpu_logits, _ = forward(host, cfg, row)
+        with RouteLog() as card_routes:
+            card_logits, _ = forward(t2.params, cfg,
+                                     {k: v.to(DEV) for k, v in row.items()})
+        with RouteLog(card_routes.experts) as cpu_routes:
+            cpu_logits, _ = forward(host, cfg, row)
         # the loss as lm_loss computes it, from these logits
         card = float(softmax_xent(card_logits, labels.to(DEV), mask.to(DEV)))
         cpu = float(softmax_xent(cpu_logits, labels, mask))
+    if card_routes.calls:
+        route_agreement("trainer: card against CPU (the CPU on the card's "
+                        "routes)", *(torch.stack(r.calls)[:, None].cpu()
+                                     for r in (card_routes, cpu_routes)),
+                        cfg.top_k)
+    del card_routes, cpu_routes
     card_logits = card_logits.cpu()
     rel = abs(card - cpu) / abs(cpu)
     err = float((card_logits.float() - cpu_logits.float()).abs().max())
@@ -1114,6 +1161,95 @@ def bf16_ulps(a, b):
     return (a - b).abs() / ulp
 
 
+class RouteLog:
+    """While active, wraps ``repro_torch.models.moe.route`` (what every MoE
+    layer calls) to keep, in call order, each call's float32 router logits
+    (N, E) and the top-k experts the port chose from them. Given
+    ``replay``, a list of (N, k) experts in the same call order (another
+    run's ``experts``), each call routes its tokens to those experts
+    instead, its gates taken from its own probabilities at them: the two
+    runs then take the same discrete decisions, and compare as continuous
+    functions. A model without MoE layers makes no call."""
+
+    def __init__(self, replay=None) -> None:
+        self.replay = replay
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self.calls, self.experts, self._orig = [], [], moe.route
+
+        def route(p, xf, k):
+            probs, gates, experts = self._orig(p, xf, k)
+            self.calls.append(moe.router_logits(p, xf).detach())
+            self.experts.append(experts)
+            if self.replay is not None:
+                experts = self.replay[len(self.calls) - 1].to(xf.device)
+                gates = torch.gather(probs, -1, experts)
+            return probs, gates, experts
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc) -> None:
+        from repro_torch.models import moe
+        moe.route = self._orig
+
+
+def route_agreement(label: str, la, lb, k: int):
+    """The top-k expert sets that two runs' router logits ``la``, ``lb``
+    (layers, B, T, E) choose for the same tokens. A token of a layer whose
+    sets differ is a flip: each is printed with the gap between its k-th
+    and (k+1)-th largest logit on either side and the two sides' largest
+    logit difference there, in bf16 ulps of the token's largest |logit|.
+    A flip whose gap on either side exceeds twice that difference is not
+    decided by rounding, and fails. Returns the (B, T) tokens routed
+    alike in every layer."""
+    import torch
+    from repro_torch.models.moe import top_k
+
+    ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(
+        la.abs().amax(dim=-1), lb.abs().amax(dim=-1)).clamp_min(
+            2.0 ** -126))) - 7)
+
+    def experts_and_gap(lg):
+        e = top_k(torch.softmax(lg, dim=-1), k)[1].sort(dim=-1).values
+        s = lg.sort(dim=-1, descending=True).values
+        return e, (s[..., k - 1] - s[..., k]) / ulp
+
+    ea, ga = experts_and_gap(la)
+    eb, gb = experts_and_gap(lb)
+    diff = (la - lb).abs().amax(dim=-1) / ulp                # (L, B, T)
+    flip = (ea != eb).any(dim=-1)
+    bad = flip & ((ga > 2 * diff) | (gb > 2 * diff))
+    alike = ~flip.any(dim=0)                                  # (B, T)
+    where = flip.nonzero().tolist()
+    shown = [(l_, b, t, round(float(ga[l_, b, t]), 3),
+              round(float(gb[l_, b, t]), 3), round(float(diff[l_, b, t]), 3))
+             for l_, b, t in where[:16]]
+    print(f"{label}: top-{k} routes over {la.shape[0]} MoE calls x "
+          f"{la.shape[1]} x {la.shape[2]} tokens: {len(where)} flips, "
+          f"{int(alike.sum())} of {alike.numel()} tokens routed alike in "
+          f"every call; router logits differ by at most "
+          f"{float(diff.max())!r} bf16 ulps of the largest; flips (call, "
+          f"row, position, k-th gap here / there, |difference|, in ulps): "
+          f"{json.dumps(shown)}", flush=True)
+    if bad.any():
+        fail(f"{label}: {int(bad.sum())} route flips with a gap beyond the "
+             f"two sides' rounding difference")
+    return alike
+
+
+def calls_as_layers(log, n: int):
+    """A ``RouteLog``'s logits and experts of ``n`` equal runs of the same
+    calls (decode steps, say) as (calls of one run, N, n, ·) tensors."""
+    import torch
+    lg, ex = (torch.stack(t) for t in (log.calls, log.experts))
+    c = lg.shape[0] // n
+    return (lg.reshape(n, c, *lg.shape[1:]).transpose(0, 1).transpose(1, 2),
+            ex.reshape(n, c, *ex.shape[1:]).transpose(0, 1).transpose(1, 2))
+
+
 def backward_and_adamw(trainer, cfg, row, host) -> None:
     """The card's backward pass and AdamW step against the CPU's, on
     ``row`` at the trainer's width and depth: per-leaf gradients of
@@ -1135,8 +1271,21 @@ def backward_and_adamw(trainer, cfg, row, host) -> None:
             g = torch.autograd.grad(loss, list(leaves.values()))
         return dict(zip(leaves, g))
 
-    card = grads_on(trainer.params, {k: v.to(DEV) for k, v in row.items()})
-    cpu = grads_on(host, row)
+    # a MoE model's CPU pass takes the card's routes (``RouteLog``): a
+    # token whose near tie rounds the other way would move its whole
+    # gradient to another expert
+    with RouteLog() as card_routes:
+        card = grads_on(trainer.params, {k: v.to(DEV)
+                                         for k, v in row.items()})
+    with RouteLog(card_routes.experts) as cpu_routes:
+        cpu = grads_on(host, row)
+    if card_routes.calls:
+        route_agreement("trainer: gradients, card against CPU (the CPU on "
+                        "the card's routes)", *(torch.stack(r.calls)[:, None]
+                                                .cpu() for r in (
+                                                    card_routes, cpu_routes)),
+                        cfg.top_k)
+    del card_routes, cpu_routes
     rel = {k: float(torch.linalg.vector_norm(card[k].cpu().float() - g.float())
                     / torch.linalg.vector_norm(g.float()).clamp_min(1e-30))
            for k, g in cpu.items()}
@@ -1148,31 +1297,38 @@ def backward_and_adamw(trainer, cfg, row, host) -> None:
         fail("the card's gradients disagree with the CPU's")
     del card
 
-    count = trainer.opt_state["count"]
-    lr_scale = warmup_cosine(count.cpu(), total=max(trainer.tc.steps, 100))
+    count = trainer.opt_state["count"].cpu().clone()
+    lr_scale = warmup_cosine(count, total=max(trainer.tc.steps, 100))
     if not float(lr_scale) > 0:
         fail(f"warmup_cosine({int(count)}) is 0: the update would not move")
 
-    def update_on(device):
-        params = unflatten_state({k: v.detach().to(device, copy=True)
-                                  for k, v in flatten_state(host).items()})
-        opt = unflatten_state({k: v.to(device, copy=True) for k, v in
-                               flatten_state(trainer.opt_state).items()})
+    def update_on(device, params, opt):
         grads = unflatten_state({k: g.to(device) for k, g in cpu.items()})
         adamw_update(grads, opt, params, AdamWConfig(lr=trainer.tc.lr),
                      lr_scale.to(device))
-        return ({k: v.cpu() for k, v in flatten_state(params).items()},
-                {k: v.cpu() for k, v in flatten_state(opt).items()})
+        return flatten_state(params), flatten_state(opt)
 
-    p_card, o_card = update_on(DEV)
-    p_cpu, o_cpu = update_on("cpu")
-    moments = {k: float((o_card[k] - v).abs().max()
-                        / v.abs().max().clamp_min(1e-30))
-               for k, v in o_cpu.items() if k.startswith(("m/", "v/"))}
-    ulps = {k: float(bf16_ulps(p_card[k], v).max()) for k, v in p_cpu.items()}
-    wm, wp = max(moments, key=moments.get), max(ulps, key=ulps.get)
+    # the CPU's update on copies of the state, then the card's in place on
+    # the trainer's own (which is not used after), compared a leaf at a
+    # time on the host: one copy of the state on either side (phase 16's
+    # is 28.6 GB)
+    p_cpu, o_cpu = update_on(
+        "cpu", unflatten_state({k: v.detach().clone() for k, v in
+                                flatten_state(host).items()}),
+        unflatten_state({k: v.to("cpu", copy=True) for k, v in
+                         flatten_state(trainer.opt_state).items()}))
     moved = sum(int((p_cpu[k] != v).sum()) for k, v in
                 flatten_state(host).items())
+    p_card, o_card = update_on(
+        DEV, unflatten_state({k: v.detach() for k, v in
+                              flatten_state(trainer.params).items()}),
+        trainer.opt_state)
+    moments = {k: float((o_card[k].cpu() - v).abs().max()
+                        / v.abs().max().clamp_min(1e-30))
+               for k, v in o_cpu.items() if k.startswith(("m/", "v/"))}
+    ulps = {k: float(bf16_ulps(p_card[k].cpu(), v).max())
+            for k, v in p_cpu.items()}
+    wm, wp = max(moments, key=moments.get), max(ulps, key=ulps.get)
     print(f"trainer: one AdamW update at count {int(count)} (lr scale "
           f"{float(lr_scale)!r}) fed the CPU's gradients, card against CPU: "
           f"worst moment {moments[wm]!r} of the leaf's largest value ({wm}; "
@@ -1184,12 +1340,13 @@ def backward_and_adamw(trainer, cfg, row, host) -> None:
         fail("the card's AdamW parameters disagree with the CPU's")
     if not o_card["count"].item() == o_cpu["count"].item() == int(count) + 1:
         fail("AdamW's count did not advance by one")
+    del p_card, o_card
 
 
 # ------------------------------------------------------------------- serve
 
 def decode_profile(params, cfg, tok, caches, pos: int, median_s: float,
-                   steps: int = 5) -> None:
+                   steps: int = 5, label: str = "serve") -> dict:
     """``steps`` decode steps at ``pos`` under ``torch.profiler``: the
     device activities (kernels, copies, fills) a step runs and their
     summed time, beside the unprofiled median step; the rest of the step
@@ -1207,14 +1364,14 @@ def decode_profile(params, cfg, tok, caches, pos: int, median_s: float,
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     if not dev:
-        print("serve: decode step device time: not measured (the profiler "
-              "recorded no device activity)", flush=True)
-        return
+        print(f"{label}: decode step device time: not measured (the "
+              f"profiler recorded no device activity)", flush=True)
+        return {}
     busy = sum(e.time_range.elapsed_us() for e in dev) / steps * 1e-6
     top = sorted(prof.key_averages(), key=lambda e: -e.self_device_time_total)
     names = [(e.key[:48], round(e.self_device_time_total / steps, 1))
              for e in top[:6]]
-    print(f"serve: decode step under torch.profiler ({steps} steps): "
+    print(f"{label}: decode step under torch.profiler ({steps} steps): "
           f"{len(dev) / steps:.0f} device activities a step, device busy "
           f"{busy:.6f} s a step, {busy / median_s:.1%} of the median step "
           f"(idle {1 - busy / median_s:.1%}); most device us a step: "
@@ -1222,10 +1379,12 @@ def decode_profile(params, cfg, tok, caches, pos: int, median_s: float,
     copies = sorted((e for e in prof.key_averages(group_by_input_shape=True)
                      if e.key == "aten::copy_"),
                     key=lambda e: -e.self_device_time_total)
-    print("serve: aten::copy_ a step by input shapes (device us, calls): "
+    print(f"{label}: aten::copy_ a step by input shapes (device us, calls): "
           + json.dumps([(e.input_shapes, round(e.self_device_time_total
                                                / steps, 1), e.count // steps)
                         for e in copies[:6]]), flush=True)
+    return {"activities": len(dev) / steps, "busy_s": busy,
+            "idle": 1 - busy / median_s}
 
 
 def serve_path(seed: int, layers: int, *, batch: int = SERVE_BATCH,
@@ -1543,9 +1702,121 @@ def attention_phase(seed: int, *, seq: int = ATTN_SEQ,
         fail("the M-RoPE forward on the card disagrees with the CPU's")
     del params, host
     torch.cuda.empty_cache()
+    mla = mla_case(seed, seq=seq, reduced=reduced)
     return {"flash_ms": flash_ms, "sdpa_ms": sdpa_ms, "masked_ms": masked_ms,
             "prefill_ms": prefill_ms, "dense_prefill_ms": dense_prefill_ms,
-            "band_ms": band_ms, "band_masked_ms": band_masked_ms}
+            "band_ms": band_ms, "band_masked_ms": band_masked_ms, **mla}
+
+
+def mla_case(seed: int, *, seq: int = ATTN_SEQ, reduced: bool = False
+             ) -> dict:
+    """``mla_apply`` at deepseek-v2-236b's full widths (128 heads, nope
+    128, rope 64, v 128, q-LoRA 1,536, kv-LoRA 512; ``reduced``: the
+    small test configuration, the threshold lowered) on B = 1 x ``seq``
+    tokens: the flash route (query and key width 192, value width 128)
+    against the same call with the masked route forced
+    (``FLASH_THRESHOLD`` raised), the outputs within 4 bf16 ulps of the
+    largest and the gradients of x and every MLA leaf within 3e-2
+    relative L2. Then the attention alone on one seeded q, k, v of those
+    shapes: ``_attend_flash``, the masked ``_attend`` and
+    ``scaled_dot_product_attention`` (which takes a value width other than
+    the query's), each timed (CUDA events, forward only)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.models import attention as att
+
+    arch = "deepseek-v2-236b"
+    cfg = get_reduced(arch) if reduced else get_config(arch)
+    gen = torch.Generator(device=DEV).manual_seed(seed + 2)
+    p = {k: t.requires_grad_(True) for k, t in att.mla_init(
+        gen, cfg, dtype=torch.bfloat16, device=DEV).items()}
+    x = (torch.randn((1, seq, cfg.d_model), generator=gen, device=DEV)
+         .to(torch.bfloat16).requires_grad_(True))
+    pos = torch.arange(seq, dtype=torch.int32, device=DEV)[None]
+    up = torch.randn((1, seq, cfg.d_model), generator=gen,
+                     device=DEV).to(torch.bfloat16)
+    wrt = [x, *p.values()]
+    calls, orig = [], att._attend_flash
+    threshold = att.FLASH_THRESHOLD
+
+    def run():
+        out, _ = att.mla_apply(p, x, cfg=cfg, positions=pos)
+        return out.detach(), torch.autograd.grad(out, wrt, up)
+
+    att._attend_flash = lambda *a, **kw: calls.append(1) or orig(*a, **kw)
+    try:
+        if reduced:
+            att.FLASH_THRESHOLD = seq // 2
+        flash, gflash = run()
+        n_flash = len(calls)
+        with torch.no_grad():
+            apply_ms = cuda_ms(lambda: att.mla_apply(p, x, cfg=cfg,
+                                                     positions=pos), 2)
+        att.FLASH_THRESHOLD = seq             # the masked route, forced
+        calls.clear()
+        masked, gmasked = run()
+        with torch.no_grad():
+            apply_masked_ms = cuda_ms(lambda: att.mla_apply(
+                p, x, cfg=cfg, positions=pos), 2)
+        n_masked = len(calls)
+    finally:
+        att._attend_flash, att.FLASH_THRESHOLD = orig, threshold
+    top, lim = four_ulps(masked)
+    err = float((flash.float() - masked.float()).abs().max())
+    rel = [float(torch.linalg.vector_norm((a - b).float())
+                 / torch.linalg.vector_norm(b.float()).clamp_min(1e-30))
+           for a, b in zip(gflash, gmasked)]
+    names = ["x", *p]
+    worst = max(range(len(rel)), key=rel.__getitem__)
+    hd = cfg.qk_nope_dim + cfg.qk_rope_dim
+    print(f"attention: mla_apply ({cfg.name}, {cfg.padded_heads} heads, "
+          f"query/key width {hd}, value width {cfg.v_head_dim}), 1 x {seq} "
+          f"tokens: flash in {n_flash} call, the masked route forced "
+          f"({n_masked} flash calls): max |diff| {err!r} (largest {top!r}, "
+          f"limit 4 bf16 ulps = {lim!r}); gradients of x and {len(p)} "
+          f"leaves: worst relative L2 {rel[worst]!r} ({names[worst]}; limit "
+          f"3e-2); the forward {apply_ms:.2f} ms through flash, "
+          f"{apply_masked_ms:.2f} ms masked", flush=True)
+    if n_flash != 1 or n_masked != 0:
+        fail(f"mla_apply took flash {n_flash} times, {n_masked} with the "
+             f"masked route forced")
+    if not err <= lim:
+        fail("MLA's flash route disagrees with its masked route")
+    if not rel[worst] <= 3e-2:
+        fail("MLA's flash gradients disagree with its masked route's")
+    del p, x, up, flash, gflash, masked, gmasked
+    torch.cuda.empty_cache()
+
+    H, hv = cfg.padded_heads, cfg.v_head_dim
+    q, k, v = (torch.randn(s, generator=gen, device=DEV).to(torch.bfloat16)
+               for s in ((1, seq, H, 1, hd), (1, seq, H, hd),
+                         (1, seq, H, hv)))
+    scale = 1.0 / math.sqrt(hd)
+    ar = torch.arange(seq, device=DEV)
+    mask = ar[None, :] <= ar[:, None]
+    qh, kh, vh = (t.reshape(1, seq, H, -1).transpose(1, 2) for t in (q, k, v))
+    with torch.no_grad():
+        ours = att._attend_flash(q, k, v, causal=True, scale=scale)
+        sdpa = F.scaled_dot_product_attention(qh, kh, vh, is_causal=True,
+                                              scale=scale)
+        sdpa_err = float((sdpa.transpose(1, 2).float()
+                          - ours.reshape(1, seq, H, hv).float()).abs().max())
+        flash_ms = cuda_ms(lambda: att._attend_flash(
+            q, k, v, causal=True, scale=scale), 3)
+        masked_ms = cuda_ms(lambda: att._attend(q, k, v, mask, scale), 3)
+        sdpa_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, scale=scale), 5)
+    print(f"attention: MLA's attention alone, q/k {tuple(k.shape)}, v "
+          f"{tuple(v.shape)} (bf16, causal): flash {flash_ms:.4f} ms, the "
+          f"masked path {masked_ms:.4f} ms, scaled_dot_product_attention "
+          f"{sdpa_ms:.4f} ms (max |diff| against flash {sdpa_err!r})",
+          flush=True)
+    del q, k, v, qh, kh, vh, ours, sdpa
+    torch.cuda.empty_cache()
+    return {"mla_flash_ms": flash_ms, "mla_masked_ms": masked_ms,
+            "mla_sdpa_ms": sdpa_ms, "mla_apply_flash_ms": apply_ms,
+            "mla_apply_masked_ms": apply_masked_ms}
 
 
 # ------------------------------------------------------------ hybrid serve
@@ -1555,21 +1826,25 @@ def attention_phase(seed: int, *, seq: int = ATTN_SEQ,
 HYBRID_BATCH, HYBRID_PROMPT, HYBRID_GEN = 4, 2048, 64
 
 
-def hybrid_sizes(layers: int) -> str:
-    """What the hybrid serve path holds at ``layers`` of recurrentgemma-9b's
-    depth."""
+def model_sizes(arch: str, layers: int, batch: int, prompt: int,
+                gen: int) -> str:
+    """What a serve path holds at ``layers`` of ``arch``'s depth."""
+    import torch
     from repro_torch.configs import get_config
     from repro_torch.models import init_params
     from repro_torch.persistence.state import flatten_state
-    cfg = dataclasses.replace(get_config("recurrentgemma-9b"),
-                              num_layers=layers)
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, num_layers=layers)
     leaves = flatten_state(init_params(cfg, device="meta"))
     n = sum(t.numel() for t in leaves.values())
     nbytes = sum(t.numel() * t.element_size() for t in leaves.values())
-    return (f"recurrentgemma-9b at full width, {layers} of 38 layers "
+    f32 = sorted({k.rsplit("/", 1)[-1] for k, t in leaves.items()
+                  if t.dtype != getattr(torch, cfg.dtype)})
+    return (f"{arch} at full width, {layers} of {full.num_layers} layers "
             f"({[(s.pattern, s.repeat) for s in cfg.segments]}): {n} "
-            f"parameters, {nbytes} B (bf16, lam f32); batch {HYBRID_BATCH} x "
-            f"prompt {HYBRID_PROMPT} + {HYBRID_GEN} generated")
+            f"parameters, {nbytes} B ({cfg.dtype}"
+            f"{', ' + ' and '.join(f32) + ' float32' if f32 else ''}); "
+            f"batch {batch} x prompt {prompt} + {gen} generated")
 
 
 def hybrid_serve_path(seed: int, layers: int, *, batch: int = HYBRID_BATCH,
@@ -1765,31 +2040,41 @@ def hybrid_serve_path(seed: int, layers: int, *, batch: int = HYBRID_BATCH,
 #: tokens at that width (the host's bf16 products) sets the time
 HYBRID_TRAIN_LAYERS = 3
 
-def hybrid_train_steps(seed: int, layers: int, rate_gbps: float, tmp: str, *,
-                       batch: int = 1, seq: int = 4096, steps: int = 3,
-                       reduced: bool = False) -> None:
-    """``Trainer`` on recurrentgemma-9b at full width, ``layers`` deep,
-    ``batch`` x ``seq`` (``seq`` > the window and a multiple of it: the
-    band route, forward and backward, with ``remat=True``), ``steps``
-    steps and no checkpoint; each step timed. Then, on batch 0's first
-    row, first 128 tokens, the per-leaf gradients and one AdamW update
-    against the CPU's (``backward_and_adamw``), the float32 ``lam`` among
-    them."""
+def train_steps(label: str, seed: int, arch: str, layers: int,
+                rate_gbps: float, tmp: str, *, batch: int, seq: int,
+                steps: int = 3, reduced: bool = False) -> None:
+    """``Trainer`` on ``arch`` at full width, ``layers`` deep, ``batch`` x
+    ``seq`` with ``remat=True``, ``steps`` steps and no checkpoint, each
+    step timed, and the peak device memory; with a window, ``seq`` must
+    exceed it and be a multiple of it (the band route, forward and
+    backward). Then, on batch 0's first row, first 128 tokens, the
+    per-leaf gradients (float32 leaves among bf16 ones: the hybrid's
+    ``lam``, a MoE router) and one AdamW update against the CPU's
+    (``backward_and_adamw``)."""
     import statistics
     import torch
     from repro_torch.core.costmodel import PMemCostModel
     from repro_torch.launch.train import Trainer, TrainerConfig
+    from repro_torch.models.moe import capacity
     from repro_torch.persistence.state import flatten_state, unflatten_state
 
     t = Trainer(TrainerConfig(
-        arch="recurrentgemma-9b", reduced=reduced, layers=layers,
-        steps=steps, ckpt_every=steps + 1, batch=batch, seq=seq,
-        out=os.path.join(tmp, "hybrid_steps"), device=DEV, seed=seed,
+        arch=arch, reduced=reduced, layers=layers, steps=steps,
+        ckpt_every=steps + 1, batch=batch, seq=seq,
+        out=os.path.join(tmp, "train_steps"), device=DEV, seed=seed,
         async_flush=False), cost_model=PMemCostModel(
             hbm_read_bw_gbps=rate_gbps))
     cfg = t.cfg
-    if not (seq > cfg.window and seq % cfg.window == 0):
-        fail(f"seq {seq} does not take the band route (window {cfg.window})")
+    route = "remat"
+    if cfg.window:
+        if not (seq > cfg.window and seq % cfg.window == 0):
+            fail(f"seq {seq} does not take the band route (window "
+                 f"{cfg.window})")
+        route = "band route, remat"
+    if cfg.num_experts:
+        route += (f"; {capacity(batch * seq, cfg)} slots an expert for "
+                  f"{batch * seq * cfg.top_k} assignments over "
+                  f"{cfg.num_experts} experts")
     leaves = t._ckpt_state()
     nbytes = sum(v.numel() * v.element_size() for v in leaves.values())
     step_fn, step_s = t.step_fn, []
@@ -1806,20 +2091,21 @@ def hybrid_train_steps(seed: int, layers: int, rate_gbps: float, tmp: str, *,
     torch.cuda.reset_peak_memory_stats()
     losses = t.run()["losses"]
     peak = torch.cuda.max_memory_allocated()
-    print(f"hybrid train: {cfg.name} {layers} layers "
+    print(f"{label}: {cfg.name} {layers} layers "
           f"({[(s.pattern, s.repeat) for s in cfg.segments]}), {len(leaves)} "
           f"leaves, {nbytes} B of parameters and AdamW state; batch {batch} x "
-          f"seq {seq} (band route, remat); losses {losses!r} (ln "
+          f"seq {seq} ({route}); losses {losses!r} (ln "
           f"{cfg.vocab_size} = {math.log(cfg.vocab_size):.4f}); step wall s "
           f"{json.dumps([round(x, 4) for x in step_s])}, "
           f"{batch * seq / statistics.median(step_s[1:] or step_s):.1f} "
           f"tokens/s after the first; peak device memory {peak} B", flush=True)
     if not all(math.isfinite(x) for x in losses) or len(losses) != steps:
-        fail(f"the hybrid's train steps gave {losses}")
-    # the tied head's logits have variance 0.02^2 * d_model at init
+        fail(f"{label}: the train steps gave {losses}")
+    # the head's logits have variance 0.02^2 * d_model at init
     want = math.log(cfg.vocab_size) + 0.02 ** 2 * cfg.d_model / 2
     if abs(losses[0] - want) > 1.0:
-        fail(f"first loss {losses[0]} is not within 1.0 of {want:.4f}")
+        fail(f"{label}: first loss {losses[0]} is not within 1.0 of "
+             f"{want:.4f}")
     b0 = t.pipeline.batch_at(0)
     row = {k: torch.from_numpy(v[:1, :128]) for k, v in b0.items()}
     host = unflatten_state({k: v.detach().cpu()
@@ -1827,6 +2113,227 @@ def hybrid_train_steps(seed: int, layers: int, rate_gbps: float, tmp: str, *,
     backward_and_adamw(t, cfg, row, host)
     del t, host
     torch.cuda.empty_cache()
+
+
+# --------------------------------------------------------------------- MoE
+
+#: the MoE serve paths' batch, prompt and generated tokens
+MOE_BATCH, MOE_PROMPT, MOE_GEN = 8, 512, 128
+#: the MoE train steps' depth: phi3.5-moe-42b-a6.6b at full width, 2 of
+#: 32 layers (5.73 GB of parameters, ~34 GB with gradients and moments)
+MOE_TRAIN_LAYERS = 2
+
+
+def moe_serve_path(seed: int, arch: str, layers: int, *,
+                   batch: int = MOE_BATCH, prompt: int = MOE_PROMPT,
+                   gen: int = MOE_GEN, timed_steps: int = 16,
+                   reduced: bool = False) -> dict:
+    """Serving a MoE model through ``repro_torch.launch.serve`` at
+    ``arch``'s full width, ``layers`` deep (``reduced``: the small test
+    configuration, for a rehearsal):
+
+    1. ``serve_batch``: ``batch`` prompts from the synthetic pipeline,
+       ``gen`` greedy tokens in the vocabulary; its ``decode_step`` is
+       wrapped to keep each step's logits and, after position ``prompt +
+       1``, a host copy of the caches, and every MoE layer's router
+       logits and experts are kept (``RouteLog``). A decode step routes
+       ``batch`` tokens, under the capacity floor of 8: nothing is
+       dropped;
+    2. a ``forward`` over each row's whole sequence with the capacity
+       factor raised to E/k, so that every token fits and nothing is
+       dropped (at 1.25, or at 8.0 for deepseek-v2, whose busiest expert
+       takes over a third of the tokens, some would be), each token routed
+       to the experts the decode chose for it. Routing is discontinuous:
+       where the two sides' router logits differ by a rounding, a near tie
+       goes the other way, that token's later layers see another hidden
+       state and every later position of its row reads its keys and
+       values (on the card, NVIDIA H100 80GB HBM3, at 4 of phi3.5-moe's
+       layers, 412 of the 5,120 tokens flipped somewhere, and the tokens
+       after a flip in their rows differed by up to 5.75 times the limit
+       below). So the forward takes the decode's routes, the routes it
+       would have taken are compared (``route_agreement``: each flip must
+       be decided by rounding), and then every token's logits are held
+       within 4 bf16 ulps of the largest, the dense paths' limit, and each
+       step's argmax (which ``serve_batch`` clamped to the vocabulary)
+       within that of its position's largest logit;
+    3. the model on the card and on the CPU at the same depth, each from
+       the host copy of the caches, the CPU on the card's routes: two
+       decode steps, the routes compared, then the logits and every cache
+       leaf within 4 bf16 ulps of their largest;
+    4. ``timed_steps`` decode steps from the copied caches, each timed
+       after ``torch.cuda.synchronize``, then ``decode_profile``; the byte
+       bound is every parameter byte over 3.35 TB/s (a decode step runs
+       every expert on its capacity buffer)."""
+    import statistics
+    import torch
+    import repro_torch.launch.serve as serve_mod
+    from repro_torch.configs import get_config, get_reduced
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import decode_step, forward, init_params
+    from repro_torch.persistence.state import flatten_state, unflatten_state
+
+    cfg = get_reduced(arch) if reduced else get_config(arch)
+    cfg = dataclasses.replace(cfg, num_layers=layers)
+    tag = f"{'MLA' if cfg.attn_kind == 'mla' else 'MoE'} serve"
+    params = init_params(cfg, seed, device=DEV)
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in flatten_state(params).values())
+    prompts = torch.from_numpy(
+        synthetic_batch(cfg, batch, prompt, cursor=0)["tokens"]).to(DEV)
+
+    # 1. the entry point, its decode steps and routes recorded ----------------
+    n = prompt + gen
+    dec = torch.empty((batch, n, cfg.padded_vocab), dtype=torch.bfloat16,
+                      device=DEV)
+    snap = {}
+    step = serve_mod.decode_step
+
+    def recording(p, c, tokens, caches, pos, extras=None):
+        logits, caches = step(p, c, tokens, caches, pos, extras)
+        dec[:, pos] = logits[:, -1]
+        if pos == prompt + 1:
+            snap.update({k: t.cpu() for k, t in
+                         flatten_state(caches).items()})
+        return logits, caches
+
+    serve_mod.decode_step = recording
+    try:
+        with RouteLog() as dlog:
+            toks, tps = serve_mod.serve_batch(cfg, params, prompts, gen)
+    finally:
+        serve_mod.decode_step = step
+    if tuple(toks.shape) != (batch, gen) or int(toks.min()) < 0 \
+            or int(toks.max()) >= cfg.vocab_size:
+        fail(f"serve_batch gave {tuple(toks.shape)} tokens in "
+             f"[{int(toks.min())}, {int(toks.max())}], vocabulary "
+             f"{cfg.vocab_size}")
+    print(f"{tag}: {cfg.name} serve_batch {batch} x ({prompt} prompt + "
+          f"{gen} generated) on {layers} layers, {tps:.1f} tokens/s "
+          f"(B*(P+gen) over the wall time, the logits kept on the card "
+          f"each step); row 0 begins {toks[0, :8].tolist()}", flush=True)
+
+    # 2. the recorded decode against the full forward on its routes ----------
+    seq = torch.cat([prompts, prompts[:, -1:], toks[:, :-1]], dim=1)
+    # E/k slots an expert hold every token of a row: nothing is dropped
+    wide = dataclasses.replace(cfg, capacity_factor=cfg.num_experts
+                               / cfg.top_k)
+    la, ea = calls_as_layers(dlog, n)                # (L, B, n, ·)
+    del dlog
+    L, k = la.shape[0], cfg.top_k
+    load = max(int(torch.bincount(ea[l_].reshape(-1)).max())
+               for l_ in range(L))
+    lb, full = [], torch.empty_like(dec)
+    with torch.inference_mode():
+        for r in range(batch):
+            with RouteLog(list(ea[:, r])) as flog:
+                full[r] = forward(params, wide, {"tokens": seq[r:r + 1]})[0][0]
+            lb.append(torch.stack(flog.calls))
+    lb = torch.stack(lb, dim=1)                      # (L, B, n, E)
+    del flog
+    alike = route_agreement(f"{tag}: decode against the forward", la, lb, k)
+    del la, lb, ea
+    top, lim = four_ulps(full)
+    d = (dec.float() - full.float()).abs().amax(dim=-1)       # (B, n)
+    err, err_alike = float(d.max()), float(d[alike].max())
+    # serve_batch took the argmax of the padded vocabulary, clamped to the
+    # vocabulary: the decode's argmax must give its tokens, and lie within
+    # the limit of the forward's largest logit there
+    raw = dec[:, prompt:].argmax(dim=-1)
+    if not torch.equal(raw.clamp(max=cfg.vocab_size - 1).to(toks.dtype),
+                       toks):
+        fail(f"{tag}: serve_batch's tokens are not the decode's argmax")
+    gl = full[:, prompt:].float()
+    best = gl.max(dim=-1).values
+    chosen = torch.gather(gl, -1, raw[..., None])[..., 0]
+    glim = 4 * torch.exp2(torch.floor(torch.log2(best.abs())) - 7)
+    gap = float(((best - chosen) / glim).max())
+    print(f"{tag}: decode over {n} positions x {batch} rows against the "
+          f"forward over each row on the decode's routes (capacity factor "
+          f"{wide.capacity_factor:.4g}: every token fits; the busiest expert "
+          f"took {load} of the {batch * n} tokens): max |decode - forward| "
+          f"logit {err!r} ({err_alike!r} on the {int(alike.sum())} tokens "
+          f"that would route alike; largest {top!r}, limit 4 bf16 ulps = "
+          f"{lim!r}); each step's argmax below its position's largest "
+          f"logit in the forward: worst {gap!r} of the limit", flush=True)
+    if not err <= lim:
+        fail(f"{tag}: decode's logits disagree with the full forward's")
+    if not gap <= 1:
+        fail(f"{tag}: serve_batch's greedy tokens are not the forward's "
+             f"argmax")
+    del dec, full, gl, d
+
+    # 3. two decode steps from the copied caches, card against CPU ------------
+    host = unflatten_state({k_: t.cpu() for k_, t in
+                            flatten_state(params).items()})
+    out, logs = {}, {}
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        for name, p, dev in (("card", params, DEV), ("cpu", host, "cpu")):
+            c = unflatten_state({k_: t.to(dev, copy=True) for k_, t in
+                                 snap.items()})
+            ls = []
+            replay = None if name == "card" else logs["card"].experts
+            with RouteLog(replay) as logs[name]:
+                for pos in (prompt + 2, prompt + 3):
+                    logits, c = decode_step(p, cfg, seq[:, pos:pos + 1].to(
+                        dev), c, pos)
+                    ls.append(logits.cpu())
+            out[name] = (torch.cat(ls, dim=1),
+                         {k_: t.cpu() for k_, t in flatten_state(c).items()})
+    cpu_s = time.perf_counter() - t0
+    (cl, cc), (hl, hc) = out["card"], out["cpu"]
+    route_agreement(f"{tag}: card against CPU (the CPU on the card's "
+                    f"routes)", *(calls_as_layers(logs[s_], 2)[0].cpu()
+                                  for s_ in ("card", "cpu")), k)
+    top, lim = four_ulps(hl)
+    err = float((cl.float() - hl.float()).abs().max())
+    worst = []
+    for k_ in hc:
+        if k_.endswith("/pos"):
+            if not torch.equal(cc[k_], hc[k_]):
+                fail(f"{tag}: the card's cache {k_} differs from the CPU's")
+            continue
+        ctop, clim = four_ulps(hc[k_])
+        cerr = float((cc[k_].float() - hc[k_].float()).abs().max())
+        worst.append((cerr / clim, k_, cerr, ctop, clim))
+    ratio, k_, cerr, ctop, clim = max(worst)
+    print(f"{tag}: {layers} layers, 2 decode steps at positions "
+          f"{prompt + 2}-{prompt + 3} from the caches copied after "
+          f"{prompt + 1}, card against CPU ({cpu_s:.1f} s): max |diff| logit "
+          f"{err!r} (largest {top!r}, limit 4 bf16 ulps = {lim!r}); worst "
+          f"cache leaf {k_}: {cerr!r} (largest {ctop!r}, limit {clim!r})",
+          flush=True)
+    if not err <= lim:
+        fail(f"{tag}: the decode logits on the card disagree with the CPU's")
+    if not ratio <= 1:
+        fail(f"{tag}: the caches on the card disagree with the CPU's")
+    del host, out, logs
+
+    # 4. decode steps from the copied caches, timed and profiled --------------
+    caches = unflatten_state({k_: t.to(DEV) for k_, t in snap.items()})
+    step_s = []
+    with torch.inference_mode():
+        for i in range(timed_steps):
+            pos = prompt + 2 + i
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            decode_step(params, cfg, seq[:, pos:pos + 1], caches, pos)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+    med = statistics.median(step_s[1:])
+    bound = nbytes / PEAK_BYTES_PER_S * 1e3
+    print(f"{tag}: decode step ({batch} rows) wall s median {med:.6f} of "
+          f"{timed_steps - 1} after the first ({step_s[0]:.4f}), min "
+          f"{min(step_s):.6f}, max {max(step_s):.6f}; {batch / med:.1f} "
+          f"tokens/s (after torch.cuda.synchronize()); byte bound "
+          f"{bound:.3f} ms ({nbytes} B of parameters over 3.35 TB/s: every "
+          f"expert runs on its capacity buffer)", flush=True)
+    prof = decode_profile(params, cfg, seq[:, -1:], caches, n - 1, med,
+                          label=tag)
+    del params, caches
+    torch.cuda.empty_cache()
+    return {"serve_tokens_per_s": tps, "decode_median_s": med,
+            "bound_ms": bound, "routed_alike": int(alike.sum()), **prof}
 
 
 # ------------------------------------------------------------------ cluster
@@ -2124,6 +2631,14 @@ def main() -> int:
                          "(rec, rec, attn) units and the (rec, rec) tail; "
                          "recurrentgemma-9b has 38, which takes the path to "
                          "133-247 s on an H100's host)")
+    ap.add_argument("--moe-serve-layers", type=int, default=4,
+                    help="decoder depth of the MoE serve path "
+                         "(phi3.5-moe-42b-a6.6b has 32: 83.7 GB, more than "
+                         "the card holds; 4 are 10.93 GB)")
+    ap.add_argument("--mla-serve-layers", type=int, default=3,
+                    help="decoder depth of the MLA serve path "
+                         "(deepseek-v2-236b has 60: 471 GB; 3 are the dense "
+                         "layer and 2 MoE layers, 18.66 GB)")
     args = ap.parse_args()
 
     import torch
@@ -2171,14 +2686,30 @@ def main() -> int:
                                f"widths; the prefill step on all 22 layers "
                                f"of tinyllama-1.1b; qwen2-vl-7b at full "
                                f"width, 2 of 28 layers, 32 tokens",
-            "hybrid serve path": hybrid_sizes(args.hybrid_serve_layers),
+            "hybrid serve path": model_sizes(
+                "recurrentgemma-9b", args.hybrid_serve_layers, HYBRID_BATCH,
+                HYBRID_PROMPT, HYBRID_GEN),
             "hybrid train steps": f"recurrentgemma-9b at full width, "
                                   f"{HYBRID_TRAIN_LAYERS} of 38 layers, "
                                   f"batch 1 x seq 4096, 3 steps, no "
                                   f"checkpoint",
             "hybrid trainer path": "recurrentgemma-smoke (the reduced "
                                    "configuration) at 5 layers, batch 8 x "
-                                   "seq 128"}
+                                   "seq 128",
+            "MoE serve path": model_sizes(
+                "phi3.5-moe-42b-a6.6b", args.moe_serve_layers, MOE_BATCH,
+                MOE_PROMPT, MOE_GEN) + "; card against CPU at the same depth",
+            "MLA serve path": model_sizes(
+                "deepseek-v2-236b", args.mla_serve_layers, MOE_BATCH,
+                MOE_PROMPT, MOE_GEN) + "; card against CPU at the same depth",
+            "MLA attention case": f"mla_apply at deepseek-v2-236b's full "
+                                  f"widths, B = 1 x {ATTN_SEQ} tokens",
+            "MoE train steps": f"phi3.5-moe-42b-a6.6b at full width, "
+                               f"{MOE_TRAIN_LAYERS} of 32 layers, batch 8 x "
+                               f"seq 512, 3 steps, no checkpoint",
+            "MLA + MoE trainer path": "deepseek-v2-smoke (the reduced "
+                                      "configuration) at its 3 layers, "
+                                      "batch 8 x seq 128"}
     print("reduced: " + json.dumps(cuts), flush=True)
 
     # 2. kernels --------------------------------------------------------
@@ -2294,8 +2825,9 @@ def main() -> int:
     check_launches("hybrid serve path", hserve_launches, (), tuple(wrappers))
     with tempfile.TemporaryDirectory(prefix="chip_smoke_hybrid_") as tmp:
         t0 = time.perf_counter()
-        hsteps_launches, _ = counted(lambda: hybrid_train_steps(
-            args.seed, HYBRID_TRAIN_LAYERS, rate, tmp))
+        hsteps_launches, _ = counted(lambda: train_steps(
+            "hybrid train", args.seed, "recurrentgemma-9b",
+            HYBRID_TRAIN_LAYERS, rate, tmp, batch=1, seq=4096))
         print(f"hybrid train steps: {time.perf_counter() - t0:.1f} s",
               flush=True)
         check_launches("hybrid train steps", hsteps_launches, (),
@@ -2317,7 +2849,46 @@ def main() -> int:
     if hleaves != 190 or {k: htrain_launches[k] for k in hwant} != hwant:
         fail(f"hybrid trainer path launches {htrain_launches}, predicted "
              f"{hwant}")
+
+    # the MoE family and MLA ----------------------------------------------
+    torch.cuda.empty_cache()
+    moe_report = {}
+    for label, arch, layers in (
+            ("MoE serve path", "phi3.5-moe-42b-a6.6b", args.moe_serve_layers),
+            ("MLA serve path", "deepseek-v2-236b", args.mla_serve_layers)):
+        t0 = time.perf_counter()
+        mlaunches, moe_report[label] = counted(lambda: moe_serve_path(
+            args.seed, arch, layers))
+        print(f"{label}: {time.perf_counter() - t0:.1f} s", flush=True)
+        check_launches(label, mlaunches, (), tuple(wrappers))
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_moe_") as tmp:
+        t0 = time.perf_counter()
+        msteps_launches, _ = counted(lambda: train_steps(
+            "MoE train", args.seed, "phi3.5-moe-42b-a6.6b",
+            MOE_TRAIN_LAYERS, rate, tmp, batch=8, seq=512))
+        print(f"MoE train steps: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        check_launches("MoE train steps", msteps_launches, (),
+                       tuple(wrappers))
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        mtrain_launches, mleaves = counted(lambda: trainer_path(
+            args.seed, 3, rate, tmp, batch=8, seq=128, reduced=True,
+            arch="deepseek-v2-236b"))
+        print(f"MLA + MoE trainer path: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    check_launches("MLA + MoE trainer path", mtrain_launches,
+                   ("flush_pack", "popcnt_checksum", "apply_unpack"),
+                   ("dirty_diff",) + delta_chain)
+    # the same rule over deepseek-v2-smoke's 31 parameter and 63 optimizer
+    # leaves
+    mwant = {"popcnt_checksum": mleaves, "apply_unpack": 2 * mleaves,
+             "flush_pack": 3 * mleaves}
+    if mleaves != 94 or {k: mtrain_launches[k] for k in mwant} != mwant:
+        fail(f"MLA + MoE trainer path launches {mtrain_launches}, predicted "
+             f"{mwant}")
     print(json.dumps({"attention": attn}), flush=True)
+    print(json.dumps({"moe": moe_report}), flush=True)
 
     # report ------------------------------------------------------------
     replaces = {

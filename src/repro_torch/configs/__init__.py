@@ -2,10 +2,12 @@
 
 The port's copy of ``repro.configs``. Ported: the dense family
 (``tinyllama-1.1b``, ``stablelm-12b``, ``codeqwen1.5-7b``,
-``deepseek-coder-33b``), the RG-LRU hybrid ``recurrentgemma-9b`` and the
-M-RoPE language model of ``qwen2-vl-7b``. Every other architecture of the
-JAX package's registry raises ``NotImplementedError`` naming the
-``ROADMAP.md`` item that ports it, and is never mapped to another model.
+``deepseek-coder-33b``), the RG-LRU hybrid ``recurrentgemma-9b``, the
+M-RoPE language model of ``qwen2-vl-7b`` and the MoE family
+(``phi3.5-moe-42b-a6.6b``, and ``deepseek-v2-236b`` with MLA). Every
+other architecture of the JAX package's registry raises
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it, and
+is never mapped to another model.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ __all__ = ["ALIASES", "ARCH_IDS", "get_config", "get_reduced"]
 #: the architectures this package can build
 ARCH_IDS: List[str] = ["tinyllama_1_1b", "stablelm_12b", "codeqwen15_7b",
                        "deepseek_coder_33b", "recurrentgemma_9b",
-                       "qwen2_vl_7b"]
+                       "qwen2_vl_7b", "phi35_moe_42b", "deepseek_v2_236b"]
 
 #: assignment-sheet name → module id (the JAX package's table)
 ALIASES: Dict[str, str] = {
@@ -39,11 +41,9 @@ ALIASES: Dict[str, str] = {
 #: architectures of the JAX package not ported yet, with what they wait for
 #: and the items of ROADMAP.md §1 that port it
 _NOT_PORTED: Dict[str, str] = {
-    "phi35_moe_42b": "the MoE family (item 1)",
-    "deepseek_v2_236b": "MLA attention and the MoE family (item 1)",
-    "mamba2_130m": "the Mamba2 SSD family (item 2)",
+    "mamba2_130m": "the Mamba2 SSD family (item 1)",
     "whisper_large_v3": "the encoder, cross attention and the audio "
-                        "frontend (item 3)",
+                        "frontend (item 2)",
 }
 
 

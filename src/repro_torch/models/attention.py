@@ -31,8 +31,22 @@ With one, the ring's ``pos`` leaf records, in place, the position written
 to the slot, and a slot is valid when ``0 <= cache_pos - pos < window``
 and ``pos >= 0``.
 
+MLA (DeepSeek-V2 multi-head latent attention; ``mla_init``,
+``mla_apply``, ``mla_cache_init``) keeps the reference's two forms. The
+full sequence materialises per-head keys ``[k_nope, k_rope]`` (the rope
+key one shared head, broadcast over H) and values from the latent
+``ckv`` and attends with the masked path, or above ``FLASH_THRESHOLD``
+with :func:`_attend_flash` (KV = H, G = 1; the query and key width
+``nope + rope`` differs from the value width); it returns the new
+tokens' ``{"ckv", "k_rope"}``. Decode is absorbed: the queries are
+projected into the latent space and attend to the compressed cache
+``(ckv, k_rope)`` itself, written in place at ``cache_pos`` with the
+start clamped as above. Its two score products are each rounded to the
+model dtype and summed in float32, where XLA's excess precision keeps
+their sum.
+
 Not ported, and refused rather than computed another way: cross attention
-(whisper's ``xattn`` blocks) and MLA.
+(whisper's ``xattn`` blocks).
 """
 
 from __future__ import annotations
@@ -43,9 +57,10 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.models.layers import (apply_rope, dense_init, mrope_angles,
-                                       rope_angles)
+                                       rmsnorm, rmsnorm_init, rope_angles)
 
-__all__ = ["FLASH_THRESHOLD", "gqa_apply", "gqa_cache_init", "gqa_init"]
+__all__ = ["FLASH_THRESHOLD", "gqa_apply", "gqa_cache_init", "gqa_init",
+           "mla_apply", "mla_cache_init", "mla_init"]
 
 #: without a window, full sequences longer than this take the chunked
 #: online softmax (:func:`_attend_flash`) instead of (S, S) scores; read
@@ -155,6 +170,20 @@ def _attend_band(q, k, v, window: int, scale: float) -> torch.Tensor:
     return out.permute(0, 1, 4, 2, 3, 5).reshape(B, S, KV, G, -1)
 
 
+def _write_cache(cache: Dict[str, torch.Tensor],
+                 new: Dict[str, torch.Tensor], slot: int) -> None:
+    """Write each ``new[name]`` (B, S, ...) into ``cache[name]`` (B, T,
+    ...) in place at ``slot``, the start clamped to ``[0, T - S]`` as
+    ``jax.lax.dynamic_update_slice`` clamps it."""
+    for name, t in new.items():
+        T, S = cache[name].shape[1], t.shape[1]
+        if S > T:
+            raise ValueError(f"{S} tokens do not fit a cache of {T} slots")
+        start = min(max(slot, 0), T - S)
+        cache[name].index_copy_(
+            1, torch.arange(start, start + S, device=t.device), t)
+
+
 def gqa_apply(
     p,
     x: torch.Tensor,
@@ -190,14 +219,9 @@ def gqa_apply(
     if cache is not None:
         # decode: write the S new slots, attend to the valid ones
         T = cache["k"].shape[1]
-        if S > T:
-            raise ValueError(f"{S} tokens do not fit a cache of {T} slots")
         slot = cache_pos % T if window else cache_pos
-        start = min(max(slot, 0), T - S)
         ar = torch.arange(T, device=x.device)
-        slots = ar[:S] + start
-        cache["k"].index_copy_(1, slots, k)
-        cache["v"].index_copy_(1, slots, v)
+        _write_cache(cache, {"k": k, "v": v}, slot)
         if window:
             cache["pos"][:, slot] = cache_pos
             age = cache_pos - cache["pos"]
@@ -233,4 +257,121 @@ def gqa_cache_init(cfg, batch: int, max_len: int, dtype, *,
         "k": torch.zeros((batch, size, KV, hd), dtype=dtype, device=device),
         "v": torch.zeros((batch, size, KV, hd), dtype=dtype, device=device),
         "pos": torch.full((1, size), -1, dtype=torch.int32, device=device),
+    }
+
+
+# =========================================================================
+# MLA (DeepSeek-V2)
+# =========================================================================
+
+
+def mla_init(gen, cfg, *, dtype, device, lead=()) -> Dict[str, torch.Tensor]:
+    """``wkv_a`` (D → kv_lora + rope), ``kv_norm``, ``wkv_b`` (kv_lora →
+    H·(nope + v)), ``wo``, and either the q-LoRA ``wq_a``, ``q_norm``,
+    ``wq_b`` (with ``q_lora_rank``) or a plain ``wq``."""
+    D = cfg.d_model
+    H = cfg.padded_heads
+    nope, rope, hv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    lq, lkv = cfg.q_lora_rank, cfg.kv_lora_rank
+    kw = dict(device=device, lead=lead)
+    p = {
+        "wkv_a": dense_init(gen, D, lkv + rope, dtype, **kw),
+        "kv_norm": rmsnorm_init(lkv, dtype, **kw),
+        "wkv_b": dense_init(gen, lkv, H * (nope + hv), dtype, **kw),
+        "wo": dense_init(gen, H * hv, D, dtype, scale=1.0 / math.sqrt(H * hv),
+                         **kw),
+    }
+    if lq:
+        p["wq_a"] = dense_init(gen, D, lq, dtype, **kw)
+        p["q_norm"] = rmsnorm_init(lq, dtype, **kw)
+        p["wq_b"] = dense_init(gen, lq, H * (nope + rope), dtype, **kw)
+    else:
+        p["wq"] = dense_init(gen, D, H * (nope + rope), dtype, **kw)
+    return p
+
+
+def _mla_q(p, x: torch.Tensor, cfg) -> torch.Tensor:
+    """The queries (B, S, H, nope + rope), through the q-LoRA where the
+    parameters have it."""
+    if "wq_a" in p:
+        q = rmsnorm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps) @ p["wq_b"]
+    else:
+        q = x @ p["wq"]
+    b, s, _ = q.shape
+    return q.reshape(b, s, cfg.padded_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+
+
+def mla_apply(
+    p,
+    x: torch.Tensor,
+    *,
+    cfg,
+    positions: torch.Tensor,             # (B, S)
+    cache: Optional[Dict[str, torch.Tensor]] = None,
+    cache_pos: Optional[int] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Latent attention of ``x`` (B,S,D): ``(out @ wo, cache)``. Without a
+    cache, over the full sequence (materialised), and ``cache`` is the new
+    tokens' ``{"ckv", "k_rope"}``; with ``cache`` and ``cache_pos``,
+    absorbed against the cache after writing them into it, and ``cache``
+    is the dict given, updated."""
+    if (cache is None) != (cache_pos is None):
+        raise NotImplementedError("attention with only one of cache and "
+                                  "cache_pos is not ported")
+    B, S, D = x.shape
+    H = cfg.padded_heads
+    nope, rope_d, hv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    lkv = cfg.kv_lora_rank
+    scale = 1.0 / math.sqrt(nope + rope_d)
+
+    q = _mla_q(p, x, cfg)
+    cos, sin = rope_angles(positions, rope_d, cfg.rope_theta)
+    q_nope, q_rope = q[..., :nope], apply_rope(q[..., nope:], cos, sin)
+
+    kv_a = x @ p["wkv_a"]
+    ckv_new = rmsnorm(kv_a[..., :lkv], p["kv_norm"], cfg.norm_eps)
+    k_rope_new = apply_rope(kv_a[..., None, lkv:], cos, sin)[:, :, 0]
+
+    wkv_b = p["wkv_b"].reshape(lkv, H, nope + hv)
+
+    if cache is not None:
+        # absorbed decode: attend in the latent space
+        _write_cache(cache, {"ckv": ckv_new, "k_rope": k_rope_new}, cache_pos)
+        ckv, k_r = cache["ckv"], cache["k_rope"]
+        T = ckv.shape[1]
+        q_lat = torch.einsum("bshn,lhn->bshl", q_nope, wkv_b[..., :nope])
+        scores = (torch.einsum("bshl,btl->bhst", q_lat, ckv).float()
+                  + torch.einsum("bshr,btr->bhst", q_rope, k_r).float()) * scale
+        valid = torch.arange(T, device=x.device) <= cache_pos
+        scores = torch.where(valid, scores, -1e30)
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        lat = torch.einsum("bhst,btl->bshl", probs, ckv)
+        out = torch.einsum("bshl,lhv->bshv", lat, wkv_b[..., nope:])
+        return out.reshape(B, S, H * hv) @ p["wo"], cache
+
+    # train / prefill: per-head keys and values from the latent
+    kv = torch.einsum("btl,lhx->bthx", ckv_new, wkv_b)   # (B,S,H,nope+hv)
+    k = torch.cat([kv[..., :nope],
+                   k_rope_new[:, :, None, :].expand(B, S, H, rope_d)], dim=-1)
+    v = kv[..., nope:]
+    qq = torch.cat([q_nope, q_rope], dim=-1).reshape(B, S, H, 1,
+                                                     nope + rope_d)
+    if S > FLASH_THRESHOLD:
+        out = _attend_flash(qq, k, v, causal=True, scale=scale)
+    else:
+        ar = torch.arange(S, device=x.device)
+        out = _attend(qq, k, v, ar[None, :] <= ar[:, None], scale)
+    return (out.reshape(B, S, H * hv) @ p["wo"],
+            {"ckv": ckv_new, "k_rope": k_rope_new})
+
+
+def mla_cache_init(cfg, batch: int, max_len: int, dtype, *,
+                   device) -> Dict[str, torch.Tensor]:
+    """Zero ``ckv`` (batch, max_len, kv_lora) and ``k_rope`` (batch,
+    max_len, rope) in ``dtype``: the latent cache, no per-head storage."""
+    return {
+        "ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank), dtype=dtype,
+                           device=device),
+        "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_dim), dtype=dtype,
+                              device=device),
     }

@@ -19,12 +19,15 @@ layer's new keys and values into those tensors in place and return the
 same tree (the reference returns new arrays).
 
 The block kinds ``"attn"`` (GQA, with the configuration's sliding
-window where it has one) and ``"rec"`` (the RG-LRU block) are ported:
-the dense family, the recurrentgemma hybrid (several segments; the
-recurrent state ``seg<i>/b<j>/{h, conv}`` is updated in place as the
-attention caches are) and the qwen2-vl language model with M-RoPE and the
-``vis_embeds`` stub. The other block kinds (MoE, SSD, cross attention),
-MLA and encoders raise ``NotImplementedError``.
+window where it has one, or MLA), ``"attn_moe"`` (the same attention and
+the MoE block in place of the FFN) and ``"rec"`` (the RG-LRU block) are
+ported: the dense family, the MoE family (phi3.5-moe; deepseek-v2, whose
+dense first layer and MoE layers are two segments, with MLA and its
+latent cache ``seg<i>/b<j>/{ckv, k_rope}``), the recurrentgemma hybrid
+(several segments; the recurrent state ``seg<i>/b<j>/{h, conv}`` is
+updated in place as the attention caches are) and the qwen2-vl language
+model with M-RoPE and the ``vis_embeds`` stub. The SSD block kind, cross
+attention and encoders raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -36,7 +39,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.models.attention import gqa_apply, gqa_cache_init, gqa_init
+from repro_torch.models.attention import (gqa_apply, gqa_cache_init,
+                                          gqa_init, mla_apply, mla_cache_init,
+                                          mla_init)
 from repro_torch.models.config import ModelConfig, Segment
 from repro_torch.models.layers import (
     embed_apply,
@@ -48,6 +53,7 @@ from repro_torch.models.layers import (
     softmax_xent,
     unembed_apply,
 )
+from repro_torch.models.moe import moe_apply, moe_init
 from repro_torch.models.rglru import rec_apply, rec_init, rec_state_init
 from repro_torch.persistence.state import flatten_state
 
@@ -60,15 +66,15 @@ Params = Dict[str, Any]
 
 
 #: the block kinds this package builds
-_KINDS = ("attn", "rec")
+_KINDS = ("attn", "attn_moe", "rec")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     why = None
     kinds = {k for seg in cfg.segments for k in seg.pattern}
-    if cfg.family not in ("dense", "hybrid", "vlm"):
+    if cfg.family not in ("dense", "moe", "hybrid", "vlm"):
         why = f"the {cfg.family} family"
-    elif cfg.attn_kind != "gqa":
+    elif cfg.attn_kind not in ("gqa", "mla"):
         why = f"{cfg.attn_kind} attention"
     elif not kinds <= set(_KINDS):
         why = f"the block kinds {sorted(kinds - set(_KINDS))}"
@@ -89,24 +95,30 @@ def init_block(gen, kind: str, cfg: ModelConfig, dtype, *, device,
     """One block's parameters, each leaf with the leading shape ``lead``."""
     D = cfg.d_model
     kw = dict(device=device, lead=lead)
-    if kind == "attn":
-        mixer = {"attn": gqa_init(gen, cfg, dtype=dtype, **kw)}
+    attn_init = mla_init if cfg.attn_kind == "mla" else gqa_init
+    if kind in ("attn", "attn_moe"):
+        mixer = {"attn": attn_init(gen, cfg, dtype=dtype, **kw)}
     elif kind == "rec":
         mixer = {"rec": rec_init(gen, cfg, dtype=dtype, **kw)}
     else:
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
+    if kind == "attn_moe":
+        ffn = {"moe": moe_init(gen, cfg, dtype=dtype, **kw)}
+    else:
+        ffn = {"ffn": ffn_init(gen, D, cfg.d_ff, dtype, cfg.ffn_kind, **kw)}
     return {"norm1": rmsnorm_init(D, dtype, **kw), **mixer,
-            "norm2": rmsnorm_init(D, dtype, **kw),
-            "ffn": ffn_init(gen, D, cfg.d_ff, dtype, cfg.ffn_kind, **kw)}
+            "norm2": rmsnorm_init(D, dtype, **kw), **ffn}
 
 
 def block_cache_init(kind: str, cfg: ModelConfig, batch: int, max_len: int,
                      dtype, enc_len: int = 0, *, device):
-    """One block's decode cache: ``{k, v, pos}`` of attention (a ring of
-    ``min(max_len, window)`` slots with a window), ``{h, conv}`` of the
-    recurrence (``enc_len`` is for cross attention, which is not
-    ported)."""
-    if kind == "attn":
+    """One block's decode cache: ``{k, v, pos}`` of GQA (a ring of
+    ``min(max_len, window)`` slots with a window) or ``{ckv, k_rope}`` of
+    MLA, ``{h, conv}`` of the recurrence (``enc_len`` is for cross
+    attention, which is not ported)."""
+    if kind in ("attn", "attn_moe"):
+        if cfg.attn_kind == "mla":
+            return mla_cache_init(cfg, batch, max_len, dtype, device=device)
         return gqa_cache_init(cfg, batch, max_len, dtype, device=device)
     if kind == "rec":
         return rec_state_init(cfg, batch, dtype, device=device)
@@ -121,7 +133,10 @@ def _block(kind: str, p, x: torch.Tensor, x32: Optional[torch.Tensor], *,
     block's own float32 output sum when ``want32`` (else None)."""
     eps = cfg.norm_eps
     h = rmsnorm(x if x32 is None else x32, p["norm1"], eps).to(x.dtype)
-    if kind == "attn":
+    if kind in ("attn", "attn_moe") and cfg.attn_kind == "mla":
+        a, new_cache = mla_apply(p["attn"], h, cfg=cfg, positions=positions,
+                                 cache=cache, cache_pos=cache_pos)
+    elif kind in ("attn", "attn_moe"):
         a, new_cache = gqa_apply(p["attn"], h, cfg=cfg, positions=positions,
                                  causal=True, window=cfg.window, cache=cache,
                                  cache_pos=cache_pos)
@@ -131,7 +146,9 @@ def _block(kind: str, p, x: torch.Tensor, x32: Optional[torch.Tensor], *,
         raise NotImplementedError(f"block kind {kind!r} is not ported yet")
     s = x.float() + a.float()
     x = s.to(a.dtype)
-    f = ffn_apply(p["ffn"], rmsnorm(s, p["norm2"], eps).to(a.dtype))
+    h = rmsnorm(s, p["norm2"], eps).to(a.dtype)
+    f = (moe_apply(p["moe"], h, cfg) if kind == "attn_moe"
+         else ffn_apply(p["ffn"], h))
     if not want32:
         return x + f, None, new_cache
     out = x.float() + f.float()
@@ -141,8 +158,8 @@ def _block(kind: str, p, x: torch.Tensor, x32: Optional[torch.Tensor], *,
 def apply_block(kind: str, p, x: torch.Tensor, *, cfg: ModelConfig,
                 positions: torch.Tensor, cache=None, cache_pos=None):
     """``(x after the block, its cache)``: without ``cache``, the full
-    sequence's ``{"k", "v"}`` (attention) or final ``{"h", "conv"}``
-    (recurrence), else ``cache`` updated in place.
+    sequence's ``{"k", "v"}`` (GQA), ``{"ckv", "k_rope"}`` (MLA) or final
+    ``{"h", "conv"}`` (recurrence), else ``cache`` updated in place.
 
     Each residual sum is rounded to the model's dtype, but a norm that
     reads one reads the float32 sum, as XLA's compiled reference does (its

@@ -25,6 +25,7 @@ from repro.models import init_params as jax_init_params
 from repro.models import lm_loss as jax_lm_loss
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.models import Model, forward, init_params, lm_loss
+from repro_torch.models.model import init_block
 from repro_torch.models.attention import _attend, gqa_apply
 from repro_torch.persistence.state import (TINYLLAMA_1_1B_PARAMS,
                                            flatten_state, trainer_state,
@@ -169,8 +170,7 @@ def test_heads_group_as_the_reference_groups_them():
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "deepseek-v2-236b",
-                                  "phi3.5-moe-42b-a6.6b", "whisper-large-v3"])
+@pytest.mark.parametrize("arch", ["mamba2-130m", "whisper-large-v3"])
 def test_unported_architectures_raise(arch):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config(arch)
@@ -179,8 +179,9 @@ def test_unported_architectures_raise(arch):
 
 
 def test_unported_attention_paths_raise():
-    """Cross attention and MLA are refused; the flash and window routes
-    are tested in tests/test_torch_attention.py."""
+    """Cross attention and the SSD block kind are refused; the flash and
+    window routes are tested in tests/test_torch_attention.py, MLA in
+    tests/test_torch_mla.py."""
     cfg = get_reduced(ARCH)
     p = flatten_state(init_params(cfg, 0, device="cpu"))
     attn = {k: p[f"decoder/seg0/b0/attn/{k}"][0]
@@ -191,6 +192,8 @@ def test_unported_attention_paths_raise():
         gqa_apply(attn, x, cfg=cfg, positions=pos, cross=True)
     with pytest.raises(NotImplementedError, match="cross attention"):
         gqa_apply(attn, x, cfg=cfg, positions=pos, kv_input=x)
-    mla = dataclasses.replace(cfg, attn_kind="mla")
-    with pytest.raises(NotImplementedError, match="mla attention"):
-        init_params(mla, 0, device="meta")
+    with pytest.raises(NotImplementedError, match="'ssd'"):
+        init_block(None, "ssd", cfg, torch.bfloat16, device="meta")
+    ssm = dataclasses.replace(cfg, family="ssm")
+    with pytest.raises(NotImplementedError, match="the ssm family"):
+        init_params(ssm, 0, device="meta")
