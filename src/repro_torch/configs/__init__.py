@@ -1,13 +1,12 @@
 """Architecture registry of the port: ``get_config(name)`` / ``--arch <id>``.
 
-The port's copy of ``repro.configs``. Ported: the dense family
-(``tinyllama-1.1b``, ``stablelm-12b``, ``codeqwen1.5-7b``,
-``deepseek-coder-33b``), the RG-LRU hybrid ``recurrentgemma-9b``, the
-M-RoPE language model of ``qwen2-vl-7b`` and the MoE family
-(``phi3.5-moe-42b-a6.6b``, and ``deepseek-v2-236b`` with MLA). Every
-other architecture of the JAX package's registry raises
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports it, and
-is never mapped to another model.
+The port's copy of ``repro.configs``, with every architecture of the JAX
+package's registry: the dense family (``tinyllama-1.1b``,
+``stablelm-12b``, ``codeqwen1.5-7b``, ``deepseek-coder-33b``), the RG-LRU
+hybrid ``recurrentgemma-9b``, the M-RoPE language model of
+``qwen2-vl-7b``, the MoE family (``phi3.5-moe-42b-a6.6b``, and
+``deepseek-v2-236b`` with MLA), the Mamba2 SSD model ``mamba2-130m`` and
+the encoder-decoder ``whisper-large-v3``.
 """
 
 from __future__ import annotations
@@ -22,7 +21,8 @@ __all__ = ["ALIASES", "ARCH_IDS", "get_config", "get_reduced"]
 #: the architectures this package can build
 ARCH_IDS: List[str] = ["tinyllama_1_1b", "stablelm_12b", "codeqwen15_7b",
                        "deepseek_coder_33b", "recurrentgemma_9b",
-                       "qwen2_vl_7b", "phi35_moe_42b", "deepseek_v2_236b"]
+                       "qwen2_vl_7b", "phi35_moe_42b", "deepseek_v2_236b",
+                       "mamba2_130m", "whisper_large_v3"]
 
 #: assignment-sheet name → module id (the JAX package's table)
 ALIASES: Dict[str, str] = {
@@ -38,21 +38,9 @@ ALIASES: Dict[str, str] = {
     "whisper-large-v3": "whisper_large_v3",
 }
 
-#: architectures of the JAX package not ported yet, with what they wait for
-#: and the items of ROADMAP.md §1 that port it
-_NOT_PORTED: Dict[str, str] = {
-    "mamba2_130m": "the Mamba2 SSD family (item 1)",
-    "whisper_large_v3": "the encoder, cross attention and the audio "
-                        "frontend (item 2)",
-}
-
 
 def _module(name: str):
     mod_name = ALIASES.get(name, name).replace("-", "_").replace(".", "_")
-    if mod_name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name!r} is not ported to repro_torch yet: it needs "
-            f"{_NOT_PORTED[mod_name]} of ROADMAP.md §1")
     if mod_name not in ARCH_IDS:
         raise KeyError(f"unknown architecture {name!r}")
     return importlib.import_module(f"repro_torch.configs.{mod_name}")

@@ -1,6 +1,8 @@
 """Batched serving loop, the port of ``repro.launch.serve``: the prompt
-is stepped through the decode path into the KV caches, then tokens are
-generated one step at a time. Runs on the card unless ``--device cpu``:
+is stepped through the decode path into the KV caches (an encoder-decoder
+runs its encoder on the first prompt token's step, which writes the cross
+caches), then tokens are generated one step at a time. Runs on the card
+unless ``--device cpu``:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --reduced --batch 4 --prompt-len 32 --gen 16
@@ -17,7 +19,7 @@ import torch
 
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.data import synthetic_batch
-from repro_torch.models import decode_step, init_caches, init_params
+from repro_torch.models import decode_step, forward, init_caches, init_params
 
 __all__ = ["main", "serve_batch"]
 
@@ -38,18 +40,31 @@ def serve_batch(cfg, params, prompts: torch.Tensor, gen: int,
     padded vocabulary and the token is clamped to ``vocab_size - 1``.
     ``greedy=False`` samples from the softmax of the logits with
     ``generator``, which is then required; those tokens are not the JAX
-    package's (``jax.random`` cannot be replayed). Encoder inputs
-    (``extras["frames"]``) are not ported."""
-    if extras and "frames" in extras:
-        raise NotImplementedError("encoder-decoder serving (extras['frames']) "
-                                  "is not ported yet")
+    package's (``jax.random`` cannot be replayed).
+
+    ``extras["frames"]`` (B, S_enc, D), an encoder-decoder's input: the
+    caches hold ``S_enc`` encoder positions, and the first prompt token
+    goes through one ``forward`` with the frames at position 0, which
+    runs the encoder and writes every layer's cross cache; the rest steps
+    through ``decode_step`` without them."""
     if not greedy and generator is None:
         raise ValueError("sampling (greedy=False) takes a torch.Generator")
     B, P = prompts.shape
     device = prompts.device
-    caches = init_caches(cfg, B, P + gen, device=device)
+    frames = extras.get("frames") if extras else None
+    caches = init_caches(cfg, B, P + gen,
+                         frames.shape[1] if frames is not None else 0,
+                         device=device)
     t0 = time.perf_counter()
-    for t in range(P):
+    start = 0
+    if frames is not None:
+        # the reference runs ``encode`` once more before this call and
+        # drops its result; the port does not repeat that computation
+        _, caches = forward(params, cfg, {"tokens": prompts[:, :1],
+                                          "frames": frames},
+                            caches=caches, cache_pos=0)
+        start = 1
+    for t in range(start, P):
         _, caches = decode_step(params, cfg, prompts[:, t:t + 1], caches, t)
     out = []
     last = prompts[:, -1:]
@@ -89,7 +104,9 @@ def main() -> None:
     params = init_params(cfg, args.seed, device=device)
     b = synthetic_batch(cfg, args.batch, args.prompt_len, cursor=0)
     prompts = torch.from_numpy(b["tokens"]).to(device)
-    toks, tps = serve_batch(cfg, params, prompts, args.gen)
+    extras = ({"frames": torch.from_numpy(b["frames"]).to(device)}
+              if "frames" in b else None)
+    toks, tps = serve_batch(cfg, params, prompts, args.gen, extras)
     print(json.dumps({
         "arch": cfg.name, "batch": args.batch,
         "device": (torch.cuda.get_device_name(device)

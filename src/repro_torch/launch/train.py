@@ -94,8 +94,8 @@ class TrainerConfig:
     manifest_capacity: int = 1 << 20
     #: seed of the parameter init's torch.Generator
     seed: int = 0
-    #: decoder depth, cut from the configuration's (None keeps it); a
-    #: width is never cut
+    #: decoder depth, cut from the configuration's (None keeps it), and
+    #: the encoder's where the configuration has one; a width is never cut
     layers: Optional[int] = None
 
 
@@ -114,7 +114,10 @@ class Trainer:
         os.makedirs(tc.out, exist_ok=True)
         self.cfg = get_reduced(tc.arch) if tc.reduced else get_config(tc.arch)
         if tc.layers is not None:
-            self.cfg = dataclasses.replace(self.cfg, num_layers=int(tc.layers))
+            self.cfg = dataclasses.replace(
+                self.cfg, num_layers=int(tc.layers),
+                encoder_layers=int(tc.layers) if self.cfg.encoder_layers
+                else 0)
         self.pipeline = SyntheticPipeline(self.cfg, tc.batch, tc.seq)
         self.step_fn = build_train_step(
             self.cfg, AdamWConfig(lr=tc.lr), remat=tc.remat,

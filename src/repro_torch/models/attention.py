@@ -1,6 +1,7 @@
 """Grouped-query attention, the port of the GQA part of
 ``repro.models.attention``: ``gqa_init``, ``gqa_cache_init`` and
-``gqa_apply``'s self-attention, full-sequence and cached.
+``gqa_apply``'s self-attention, full-sequence and cached, and its cross
+attention.
 
 Heads are grouped as the reference groups them: q is viewed as
 ``(B, S, KV, G, hd)``, so q-head ``h = kv * G + g`` shares k/v head
@@ -45,8 +46,13 @@ start clamped as above. Its two score products are each rounded to the
 model dtype and summed in float32, where XLA's excess precision keeps
 their sum.
 
-Not ported, and refused rather than computed another way: cross attention
-(whisper's ``xattn`` blocks).
+Cross attention (``cross=True``, whisper's ``xattn`` blocks) takes its
+keys and values from ``kv_input @ wk/wv`` (the encoder's output) where it
+is given, else from the cross cache; no RoPE and no mask, through
+:func:`_attend_flash` (not causal) when ``max(S, T) > FLASH_THRESHOLD``,
+else the dense path. It returns ``{"k", "v"}``: with a cross cache and
+``kv_input`` both given (serving's first step), the new keys and values
+are written into the cache's tensors in place and that dict is returned.
 """
 
 from __future__ import annotations
@@ -200,9 +206,11 @@ def gqa_apply(
     """Attention of ``x`` (B,S,D): ``(out @ wo, cache)``. Without a cache,
     over the full sequence, and ``cache`` is ``{"k", "v"}`` of ``x``; with
     ``cache`` and ``cache_pos``, against the cache after writing ``x``'s
-    keys and values into it, and ``cache`` is the dict given, updated."""
-    if cross or kv_input is not None:
-        raise NotImplementedError("cross attention is not ported yet")
+    keys and values into it, and ``cache`` is the dict given, updated.
+    ``cross=True`` is cross attention (the module's docstring), which
+    takes no ``cache_pos``."""
+    if cross:
+        return _cross_attend(p, x, cfg=cfg, kv_input=kv_input, cache=cache)
     if (cache is None) != (cache_pos is None):
         raise NotImplementedError("attention with only one of cache and "
                                   "cache_pos is not ported")
@@ -244,6 +252,41 @@ def gqa_apply(
             mask = torch.ones((S, S), dtype=torch.bool, device=x.device)
         out = _attend(qg, k, v, mask, scale)
     return out.reshape(B, S, H * hd) @ p["wo"], {"k": k, "v": v}
+
+
+def _cross_attend(p, x: torch.Tensor, *, cfg,
+                  kv_input: Optional[torch.Tensor],
+                  cache: Optional[Dict[str, torch.Tensor]]
+                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Cross attention of ``x`` (B,S,D) to ``kv_input`` (B,T,D) or, without
+    it, to ``cache``'s ``{"k", "v"}`` (B,T,KV,hd): ``(out @ wo, {"k",
+    "v"})``, the cache's own dict (written in place) where one is given."""
+    B, S, D = x.shape
+    hd = cfg.raw_head_dim
+    H, KV = cfg.padded_heads, cfg.padded_kv_heads
+    scale = 1.0 / math.sqrt(hd)
+    qg = _split_heads(x @ p["wq"], H).reshape(B, S, KV, H // KV, hd)
+    if kv_input is not None:
+        k = _split_heads(kv_input @ p["wk"], KV)
+        v = _split_heads(kv_input @ p["wv"], KV)
+        if cache is not None:
+            if cache["k"].shape != k.shape:
+                raise ValueError(f"keys of {tuple(k.shape)} do not fit the "
+                                 f"cross cache's {tuple(cache['k'].shape)}")
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+    elif cache is not None:
+        k, v = cache["k"], cache["v"]
+    else:
+        raise ValueError("cross attention takes kv_input or a cross cache")
+    T = k.shape[1]
+    if max(S, T) > FLASH_THRESHOLD:
+        out = _attend_flash(qg, k, v, causal=False, scale=scale)
+    else:
+        out = _attend(qg, k, v, torch.ones((S, T), dtype=torch.bool,
+                                           device=x.device), scale)
+    return (out.reshape(B, S, H * hd) @ p["wo"],
+            cache if cache is not None else {"k": k, "v": v})
 
 
 def gqa_cache_init(cfg, batch: int, max_len: int, dtype, *,

@@ -20,7 +20,8 @@ import torch.nn.functional as F
 
 __all__ = ["apply_rope", "dense_init", "embed_apply", "embed_init",
            "ffn_apply", "ffn_init", "gelu_tanh", "mrope_angles", "rmsnorm",
-           "rmsnorm_init", "rope_angles", "softmax_xent", "unembed_apply"]
+           "rmsnorm_init", "rope_angles", "silu", "softmax_xent",
+           "softplus", "unembed_apply"]
 
 
 def _randn(gen: Optional[torch.Generator], shape, device) -> torch.Tensor:
@@ -134,15 +135,24 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return x * cdf
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``x * (1 / (1 + exp(-x)))`` op by op in ``x``'s dtype, the form XLA
+    lowers ``jax.nn.silu`` to, so each step rounds where the reference's
+    does (``F.silu`` rounds once)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))``
+    at every ``x`` (``F.softplus`` switches to ``x`` above its threshold)."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
 def ffn_apply(p, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU (``silu(x @ gate) * (x @ up)``) or, without a gate,
-    :func:`gelu_tanh`; then ``@ down``. The SiLU is ``g * (1 / (1 +
-    exp(-g)))`` op by op in ``g``'s dtype, the form XLA lowers
-    ``jax.nn.silu`` to, so each step rounds where the reference's does
-    (``F.silu`` rounds once)."""
+    """SwiGLU (``silu(x @ gate) * (x @ up)``, :func:`silu` op by op) or,
+    without a gate, :func:`gelu_tanh`; then ``@ down``."""
     if "gate" in p:
-        g = x @ p["gate"]
-        h = g * (1 / (1 + torch.exp(-g))) * (x @ p["up"])
+        h = silu(x @ p["gate"]) * (x @ p["up"])
     else:
         h = gelu_tanh(x @ p["up"])
     return h @ p["down"]

@@ -28,7 +28,8 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import _randn, dense_init, ffn_apply, ffn_init
+from repro_torch.models.layers import (_randn, dense_init, ffn_apply,
+                                       ffn_init, silu)
 
 __all__ = ["capacity", "dispatch", "moe_apply", "moe_aux_loss", "moe_init",
            "route", "router_logits", "top_k"]
@@ -122,8 +123,7 @@ def moe_apply(p, x: torch.Tensor, cfg) -> torch.Tensor:
     buf = buf.index_copy(0, slot, xf[order // k])
     h = buf[:E * cap].reshape(E, cap, D)
 
-    g = torch.bmm(h, p["gate"])
-    act = g * (1 / (1 + torch.exp(-g))) * torch.bmm(h, p["up"])
+    act = silu(torch.bmm(h, p["gate"])) * torch.bmm(h, p["up"])
     y_e = torch.bmm(act, p["down"])
 
     y_flat = torch.cat([y_e.reshape(E * cap, D),

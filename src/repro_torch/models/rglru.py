@@ -28,7 +28,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from repro_torch.models.layers import dense_init, gelu_tanh
+from repro_torch.models.layers import dense_init, gelu_tanh, softplus
 
 __all__ = ["associative_scan", "rec_apply", "rec_init", "rec_state_init"]
 
@@ -133,8 +133,7 @@ def rec_apply(p, x: torch.Tensor, *, cfg,
     r = _sigmoid((u @ p["wa"]).float())
     i = _sigmoid((u @ p["wi"]).float())
     lam = p["lam"]
-    softplus = torch.clamp_min(lam, 0) + torch.log1p(torch.exp(-lam.abs()))
-    log_a = -_C * softplus * r                         # (B,S,W) f32
+    log_a = -_C * softplus(lam) * r                         # (B,S,W) f32
     a = torch.exp(log_a)
     mult = torch.sqrt(torch.clamp_min(1.0 - torch.exp(log_a + log_a), 1e-12))
     b = mult * i * u32

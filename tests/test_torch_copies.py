@@ -36,6 +36,7 @@ COPIES = [
     "configs/tinyllama_1_1b", "configs/stablelm_12b", "configs/codeqwen15_7b",
     "configs/deepseek_coder_33b", "configs/recurrentgemma_9b",
     "configs/qwen2_vl_7b", "configs/phi35_moe_42b", "configs/deepseek_v2_236b",
+    "configs/mamba2_130m", "configs/whisper_large_v3",
 ]
 
 #: why the KV engine, Pool.kv, the cluster and the front end take a cost

@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 import pytest
 
+import repro.configs
 import repro.core.recovery
 import repro.core.ssd
 import repro.pool
@@ -171,8 +172,20 @@ def test_modelstate_matches_the_reference():
         assert a == b, i
 
 
-def test_modelstate_refuses_an_architecture_not_ported():
-    pool = repro_torch.pool.Pool.create(None, 1 << 22)
-    pool.attach_ssd(repro_torch.core.ssd.SSD(1 << 23))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        repro_torch.serve.ModelStateStore(pool, "mamba2-130m")
+@pytest.mark.parametrize("arch", ["mamba2-130m", "whisper-large-v3"])
+def test_modelstate_lays_out_every_family_as_the_reference(arch):
+    """The SSD and encoder-decoder configurations resolve in the port's
+    registry, so their stores shard, place and fill as the reference's."""
+    seen = {}
+    for name in PKGS:
+        pkg, _ = PKGS[name]
+        pool = pkg.pool.Pool.create(None, 1 << 22)
+        pool.attach_ssd(pkg.core.ssd.SSD(1 << 23))
+        ms = pkg.serve.ModelStateStore(pool, arch, name="ms", seed=2)
+        seen[name] = (ms.shards, ms.npages, ms.nslots, ms.tiered,
+                      [ms.read_shard(s).tobytes()
+                       for s in (0, ms.num_shards - 1)],
+                      pool.pmem.durable_view().tobytes())
+    assert seen["repro_torch"] == seen["repro"]
+    assert len(seen["repro"][0]) == \
+        repro.configs.get_reduced(arch).num_layers + 1

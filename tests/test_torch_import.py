@@ -39,7 +39,10 @@ def test_persistence_imports_with_jax_and_repro_blocked():
         from repro_torch.serve import ModelStateStore, ServeFrontend
         from repro_torch.configs import get_config
         from repro_torch.models import init_params
+        import repro_torch.models.ssd
         init_params(get_config("tinyllama-1.1b"), device="meta")
+        init_params(get_config("mamba2-130m"), device="meta")
+        init_params(get_config("whisper-large-v3"), device="meta")
         loaded = [m for m, mod in sys.modules.items() if mod is not None
                   and (m == "jax" or m.startswith(("jax.", "repro.")))]
         assert not loaded, loaded

@@ -7,7 +7,6 @@ function of a cursor. Both sides compute in bf16 with float32 norms,
 softmax and loss, so they differ by where bf16 rounds.
 """
 
-import dataclasses
 import math
 
 import jax
@@ -16,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import ARCH_IDS as JAX_ARCH_IDS
 from repro.configs import get_config as jax_get_config
 from repro.configs import get_reduced as jax_get_reduced
 from repro.data import synthetic_batch
@@ -23,9 +23,9 @@ from repro.launch.train import flatten_state as jax_flatten
 from repro.models import forward as jax_forward
 from repro.models import init_params as jax_init_params
 from repro.models import lm_loss as jax_lm_loss
-from repro_torch.configs import get_config, get_reduced
-from repro_torch.models import Model, forward, init_params, lm_loss
-from repro_torch.models.model import init_block
+from repro_torch.configs import ARCH_IDS, get_config, get_reduced
+from repro_torch.models import (Model, forward, init_caches, init_params,
+                                lm_loss)
 from repro_torch.models.attention import _attend, gqa_apply
 from repro_torch.persistence.state import (TINYLLAMA_1_1B_PARAMS,
                                            flatten_state, trainer_state,
@@ -170,30 +170,33 @@ def test_heads_group_as_the_reference_groups_them():
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("arch", ["mamba2-130m", "whisper-large-v3"])
-def test_unported_architectures_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config(arch)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_reduced(arch)
+@pytest.mark.parametrize("name", ARCH_IDS)
+def test_every_architecture_of_the_registry_resolves(name):
+    """Every architecture of the JAX package's registry builds in the port:
+    its published and reduced configurations are the reference's."""
+    assert set(ARCH_IDS) == set(JAX_ARCH_IDS)
+    assert dataclass_fields(get_config(name)) == dataclass_fields(
+        jax_get_config(name))
+    assert dataclass_fields(get_reduced(name)) == dataclass_fields(
+        jax_get_reduced(name))
 
 
-def test_unported_attention_paths_raise():
-    """Cross attention and the SSD block kind are refused; the flash and
-    window routes are tested in tests/test_torch_attention.py, MLA in
-    tests/test_torch_mla.py."""
+def test_attention_with_only_one_of_cache_and_cache_pos_is_refused():
+    """Self-attention and ``forward`` take a cache and its position
+    together or neither; cross attention takes its cache alone."""
     cfg = get_reduced(ARCH)
-    p = flatten_state(init_params(cfg, 0, device="cpu"))
+    params = init_params(cfg, 0, device="cpu")
+    p = flatten_state(params)
     attn = {k: p[f"decoder/seg0/b0/attn/{k}"][0]
             for k in ("wq", "wk", "wv", "wo")}
-    x = torch.zeros(1, 4, cfg.d_model, dtype=torch.bfloat16)
-    pos = torch.arange(4)[None]
-    with pytest.raises(NotImplementedError, match="cross attention"):
-        gqa_apply(attn, x, cfg=cfg, positions=pos, cross=True)
-    with pytest.raises(NotImplementedError, match="cross attention"):
-        gqa_apply(attn, x, cfg=cfg, positions=pos, kv_input=x)
-    with pytest.raises(NotImplementedError, match="'ssd'"):
-        init_block(None, "ssd", cfg, torch.bfloat16, device="meta")
-    ssm = dataclasses.replace(cfg, family="ssm")
-    with pytest.raises(NotImplementedError, match="the ssm family"):
-        init_params(ssm, 0, device="meta")
+    x = torch.zeros(1, 1, cfg.d_model, dtype=torch.bfloat16)
+    pos = torch.zeros(1, 1, dtype=torch.int32)
+    cache = {k: v[0] for k, v in init_caches(cfg, 1, 4, device="cpu")[
+        "seg0"]["b0"].items()}
+    with pytest.raises(NotImplementedError, match="only one of cache"):
+        gqa_apply(attn, x, cfg=cfg, positions=pos, cache=cache)
+    with pytest.raises(NotImplementedError, match="only one of cache"):
+        gqa_apply(attn, x, cfg=cfg, positions=pos, cache_pos=0)
+    tokens = torch.zeros(1, 1, dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="only one of caches"):
+        forward(params, cfg, {"tokens": tokens}, cache_pos=0)

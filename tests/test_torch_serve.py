@@ -281,12 +281,28 @@ def test_serve_batch_samples_with_a_generator(setup):
     assert int(a.min()) >= 0 and int(a.max()) < cfg.vocab_size
 
 
-def test_serve_batch_refuses_encoder_frames(setup):
-    cfg, _, tp = setup
-    prompts = torch.zeros(1, 2, dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="frames"):
-        serve_batch(cfg, tp, prompts, 1,
-                    extras={"frames": torch.zeros(1, 4, cfg.d_model)})
+@pytest.mark.parametrize("arch,frames", [("whisper-large-v3", True),
+                                         ("mamba2-130m", False)])
+def test_serve_main_passes_the_synthetic_frames(monkeypatch, capsys, arch,
+                                                frames):
+    """As the reference's ``main``: the synthetic batch's frames, where the
+    configuration's frontend makes them, reach ``serve_batch``."""
+    seen = []
+
+    def spy(cfg, params, prompts, gen, extras=None):
+        seen.append(None if extras is None else
+                    {k: tuple(v.shape) for k, v in extras.items()})
+        return serve_batch(cfg, params, prompts, gen, extras)
+
+    monkeypatch.setattr(serve, "serve_batch", spy)
+    monkeypatch.setattr(sys, "argv", [
+        "serve", "--device", "cpu", "--reduced", "--arch", arch, "--batch",
+        "2", "--prompt-len", "16", "--gen", "3"])
+    serve.main()
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line["generated_shape"] == [2, 3]
+    d = get_reduced(arch).d_model
+    assert seen == [{"frames": (2, 16, d)} if frames else None]
 
 
 def test_serve_main_prints_its_json_line(monkeypatch, capsys):
